@@ -3,19 +3,36 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card
-(the kernel is built for sm_90a) and the CUDA toolkit. Phases, each of which
-raises on failure (exit code != 0):
+(the kernels are built for sm_90a) and the CUDA toolkit. Phases, each of
+which raises on failure (exit code != 0):
 
 1. device   — the card's name, power limit and TF32 flags;
-2. build    — nvcc builds the port's CUDA kernels from csrc/;
-3. kernel   — the NMS sweep kernel vs its plain PyTorch version at B=128,
-              N=169 (float, integer and degenerate boxes; IoU th 0.45, 0.5),
-              `torch.equal` required, then both timed with CUDA events;
-4. slice    — the CLI (`api.face_detection.main`, test mode) serves 8
-              seeded JPEGs at 416², f32, batch 4, with seeded random weights
+2. build    — nvcc builds the port's three CUDA kernels from csrc/;
+3. kernels  — each kernel vs its plain PyTorch version on the card,
+              `torch.equal` required: the NMS sweep at B=128, N=169;
+              conv_int8 at every conv_int8 shape of the int8 trunk at 416²
+              (b=8, with and without skip, k 1 and 3, stride 1 and 2) plus
+              rectangular inputs; block_int8 at the three residual stages
+              (b=32) plus a rectangular input. Then each is timed with CUDA
+              events at the main path's shapes (one 416² trunk at b=32 for
+              the int8 kernels) beside its plain version, its bound and one
+              `torch._int_mm` per GEMM as the library yardstick (product
+              only: the im2col the library would need is not counted);
+4. slice    — f32: the CLI (`api.face_detection.main`, test mode) serves 8
+              seeded JPEGs at 416², batch 4, with seeded random weights
               from a .pt checkpoint; then the device letterbox, the card's
               head vs the CPU's, and the kernel postprocess vs the plain one;
-5. timing   — detect_batch img/s at b=8 and b=32 over distinct inputs.
+5. int8     — FaceDetectorPipeline(precision="int8", int8_pallas_blocks on)
+              serves the same JPEGs in test mode from a checkpoint whose
+              trainmeta pins int8_tail 3 (seeded random kernels, seeded BN
+              statistics); every kernel must launch and the pin must hold.
+              Then, at full int8: the trunk with the fused blocks on equals
+              the one with them off, and the card's trunk equals the CPU's
+              plain one at 416² (an integer program: any difference is a
+              kernel fault); the bf16 heads within a stated tolerance;
+6. timing   — int8 detect_batch img/s at b=32 and b=128 (full int8, blocks
+              on), the trunk alone with the blocks on and off, calibration
+              seconds, and f32 detect_batch at b=8 and b=32.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -30,6 +47,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -38,15 +56,33 @@ from PIL import Image
 SEED = 0
 DEVICE = "cuda"
 IMAGE_SIZE = 416
-TIMING_BATCHES = (8, 32)
+F32_TIMING_BATCHES = (8, 32)
+INT8_TIMING_BATCHES = (32, 128)
 KERNEL_B, KERNEL_N = 128, 169
+CONV_CHECK_B = 8  # conv_int8 vs plain
+TRUNK_B = 32  # int8 kernel timings: one trunk at this batch
 # Card vs CPU head: cuDNN and the CPU sum each conv in another order, and
 # cuDNN may pick Winograd/FFT algorithms for f32, whose rounding differs more.
 HEAD_TOL = 1e-4
+# The int8 path's bf16 head, card vs CPU, on the same int8 trunk output: the
+# two bf16 convs round their f32 sums to bf16 at other places, one bf16 step
+# (2^-8 relative) and its effect on the bias add; relative to max |head|.
+INT8_HEAD_TOL = 2e-2
+# Full int8 (bf16 head) vs the folded f32 program, head NRMSE (the default
+# score of models/quant.quantize_autotail) on seeded random weights at 416².
+INT8_NRMSE_TOL = 0.1
 # Matmul letterbox vs cv2 on the same f32 pixels: f32 rounding only. (cv2 on
 # the host path's f64 pixels differs by up to 7e-5 at 1280 wide, in the JAX
 # package too: cv2 takes another coefficient path for 64F images.)
 LETTERBOX_TOL = 1e-5
+# Published dense peaks of one H100 SXM at 700 W and its memory rate.
+PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
+PEAK_F32 = 67e12  # f32 operations / s outside the tensor cores
+HBM = 3.35e12  # bytes / s
+# NMS: f32 operations per (live row i, later row j) IoU test in
+# csrc/nms_sweep.cu: two overlaps (4 each), the product, area_b (3), the
+# union (2), the division and the comparison.
+NMS_OPS_PER_PAIR = 16
 
 
 def nvidia_smi() -> str:
@@ -75,6 +111,13 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> list[float]:
 def quartiles(xs) -> str:
     q1, q2, q3 = np.percentile(xs, [25, 50, 75])
     return f"median {q2:.4f} ms (q1 {q1:.4f}, q3 {q3:.4f}, n={len(xs)})"
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for moving `nbytes` once and doing
+    `ops` at `peak` operations per second."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def sorted_case(kind: str, b: int, n: int, rng):
@@ -119,6 +162,348 @@ def write_images(path: str, rng) -> list[str]:
     return files
 
 
+def check_csv(csv: str, n_files: int, what: str):
+    rows = [line.split(",") for line in open(csv).read().splitlines()]
+    per_image = collections.Counter(r[0] for r in rows)
+    vals = np.asarray([[float(v) for v in r[1:]] for r in rows])
+    if not rows or max(per_image.values()) > 60:
+        raise AssertionError(f"{what}: solution_fd.csv rows per image: {per_image}")
+    if not np.isfinite(vals).all() or (vals[:, 2:4] < 0).any():
+        raise AssertionError(f"{what}: non-finite or negative-size rows")
+    return (f"{len(rows)} rows over {len(per_image)} of {n_files} images (max "
+            f"{max(per_image.values())} per image)")
+
+
+# ------------------------------------------------------------------ int8 shapes
+
+
+def trunk_int8_calls(ops, size: int, fused_blocks: bool):
+    """The int8 kernel calls of one trunk forward at size², in order:
+    ("conv", h, w, cin, cout, k, stride, skip) and ("block", h, w, c, ch),
+    walked the way models/quant.apply_graph_quant walks the graph."""
+    from face_vijnana_yolov3_tpu_torch.models import quant
+
+    calls, hw, c, i = [], size, 3, 0
+    while i < len(ops):
+        op = ops[i]
+        if fused_blocks and op[0] == "save" and quant._block_match(ops, i, c):
+            calls.append(("block", hw, hw, c, ops[i + 1][2]))
+            i += 4
+            continue
+        if op[0] == "conv":
+            _, _, cout, k, stride, _, _ = op
+            skip = i + 1 < len(ops) and ops[i + 1][0] == "add"
+            ho = (hw + 2 * (k // 2) - k) // stride + 1
+            calls.append(("conv", hw, hw, c, cout, k, stride, skip))
+            hw, c = ho, cout
+            i += 2 if skip else 1
+            continue
+        i += 1
+    return calls
+
+
+def int8_conv_operands(b, h, w, cin, cout, k, stride, skip, rng):
+    """Random operands on the card with calibration-like scales: the
+    requant lands mostly inside ±127, so rounding decides most outputs."""
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    wo = (w + 2 * (k // 2) - k) // stride + 1
+    fan_in = k * k * cin
+    t = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    args = dict(
+        x_q=t(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)),
+        w_q=t(rng.integers(-127, 128, (cout, k, k, cin), dtype=np.int8)),
+        w_scale=t((rng.uniform(0.5, 2, cout) / (127 * np.sqrt(fan_in))).astype(np.float32)),
+        bias=t(rng.normal(0, 0.2, cout).astype(np.float32)),
+        inv_out=t((127 / (60 * rng.uniform(1, 3, cout))).astype(np.float32)),
+    )
+    if skip:
+        args["skip_q"] = t(rng.integers(-127, 128, (b, ho, wo, cout), dtype=np.int8))
+        args["skip_s"] = t(rng.uniform(0.1, 0.5, cout).astype(np.float32))
+    return args
+
+
+def int8_block_operands(b, h, w, c, ch, rng):
+    t = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    return (t(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8)),
+            t(rng.integers(-127, 128, (ch, 1, 1, c), dtype=np.int8)),
+            t(rng.integers(-127, 128, (c, 3, 3, ch), dtype=np.int8)),
+            t((rng.uniform(0.5, 2, ch) / (127 * np.sqrt(c))).astype(np.float32)),
+            t(rng.normal(0, 0.2, ch).astype(np.float32)),
+            t((127 / (60 * rng.uniform(1, 3, ch))).astype(np.float32)),
+            t((rng.uniform(0.5, 2, c) / (127 * np.sqrt(9 * ch))).astype(np.float32)),
+            t(rng.normal(0, 0.2, c).astype(np.float32)),
+            t(rng.uniform(0.1, 0.5, c).astype(np.float32)),
+            t((127 / (60 * rng.uniform(1, 3, c))).astype(np.float32)))
+
+
+def conv_cost(b, h, w, cin, cout, k, stride, skip):
+    """(bytes, int8 operations) of one conv_int8 call: each input read
+    once, the output written once; 2 operations per multiply-add."""
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    wo = (w + 2 * (k // 2) - k) // stride + 1
+    out = b * ho * wo * cout
+    nbytes = b * h * w * cin + cout * k * k * cin + 12 * cout + out * (2 if skip else 1)
+    nbytes += 4 * cout if skip else 0
+    return nbytes, 2 * out * k * k * cin
+
+
+def block_cost(b, h, w, c, ch):
+    nbytes = 2 * b * h * w * c + 10 * c * ch + 12 * ch + 16 * c
+    return nbytes, 2 * b * h * w * (c * ch + 9 * ch * c)
+
+
+def int_mm_ms(gemms, rng, reps: int = 10) -> float:
+    """Median ms of one torch._int_mm per (M, K, N) GEMM, summed: the
+    library's int8 product with the operands already laid out (A row-major,
+    B the weights (N, K) transposed); K is padded to a multiple of 8 where
+    cuBLASLt needs it (conv_0's K = 27 → 32)."""
+    total = 0.0
+    for m, k, n in gemms:
+        k = -(-k // 8) * 8
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(DEVICE)
+        w = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(DEVICE)
+        total += float(np.median(cuda_ms(lambda: torch._int_mm(a, w.t()), reps)))
+        del a, w
+    return total
+
+
+# ------------------------------------------------------------------ phases
+
+
+def check_int8_kernels(ops, rng) -> dict:
+    """conv_int8 and block_int8 vs their plain versions on the card →
+    {name: max |kernel - plain|} in int8 steps."""
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import (
+        block_int8,
+        block_int8_reference,
+    )
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
+        conv_int8,
+        conv_int8_reference,
+    )
+
+    err = {"conv_int8": 0, "block_int8": 0}
+    on = trunk_int8_calls(ops, IMAGE_SIZE, True)
+    off = trunk_int8_calls(ops, IMAGE_SIZE, False)
+    conv_shapes = sorted({c[1:] for c in on + off if c[0] == "conv"},
+                         key=lambda s: (-s[0], s[2], s[3]))
+    conv_shapes += [(37, 53, 64, 128, 3, 2, False), (23, 41, 32, 64, 3, 1, True),
+                    (19, 11, 256, 128, 1, 1, False)]
+    for shape in conv_shapes:
+        a = int8_conv_operands(CONV_CHECK_B, *shape, rng)
+        kw = {k: a[k] for k in ("skip_q", "skip_s") if k in a}
+        got = conv_int8(a["x_q"], a["w_q"], a["w_scale"], a["bias"], a["inv_out"],
+                        stride=shape[5], leaky=True, **kw)
+        want = conv_int8_reference(a["x_q"], a["w_q"], a["w_scale"], a["bias"],
+                                   a["inv_out"], stride=shape[5], leaky=True, **kw)
+        torch.cuda.synchronize()
+        err["conv_int8"] = max(err["conv_int8"], int((got.int() - want.int()).abs().max()))
+        live = float(((want != 0) & (want.abs() < 127)).float().mean())
+        print(f"[kernels] conv_int8 b={CONV_CHECK_B} (h, w, cin, cout, k, stride, "
+              f"skip)={shape}: torch.equal {torch.equal(got, want)}; {live:.1%} of "
+              f"outputs inside (0, 127)")
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv_int8 != plain version at {shape}")
+    block_shapes = sorted({c[1:] for c in on if c[0] == "block"}, reverse=True)
+    for b, shape in [(TRUNK_B, s) for s in block_shapes] + [(3, (11, 19, 256, 128))]:
+        args = int8_block_operands(b, *shape, rng)
+        got = block_int8(*args)
+        want = block_int8_reference(*args)
+        torch.cuda.synchronize()
+        err["block_int8"] = max(err["block_int8"], int((got.int() - want.int()).abs().max()))
+        live = float(((want != 0) & (want.abs() < 127)).float().mean())
+        print(f"[kernels] block_int8 b={b} (h, w, c, ch)={shape}: torch.equal "
+              f"{torch.equal(got, want)}; {live:.1%} of outputs inside (0, 127)")
+        if not torch.equal(got, want):
+            raise AssertionError(f"block_int8 != plain version at {shape}")
+    return err
+
+
+def time_int8_kernels(ops, card, rng) -> dict:
+    """ms, plain ms, bound and _int_mm yardstick of each int8 kernel over the
+    calls of one full-int8 trunk at TRUNK_B with the fused blocks on."""
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import (
+        block_int8,
+        block_int8_reference,
+    )
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
+        conv_int8,
+        conv_int8_reference,
+    )
+
+    calls = collections.Counter(trunk_int8_calls(ops, IMAGE_SIZE, True))
+    rec = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                      t_bytes=0.0, t_ops=0.0) for name in ("conv_int8", "block_int8")}
+    b = TRUNK_B
+    for call, count in sorted(calls.items(), key=lambda kv: kv[0][0]):
+        if call[0] == "conv":
+            shape = call[1:]
+            h, w, cin, cout, k, stride, skip = shape
+            a = int8_conv_operands(b, *shape, rng)
+            kw = {key: a[key] for key in ("skip_q", "skip_s") if key in a}
+            fn = lambda: conv_int8(a["x_q"], a["w_q"], a["w_scale"], a["bias"],  # noqa: E731
+                                   a["inv_out"], stride=stride, leaky=True, **kw)
+            plain = lambda: conv_int8_reference(  # noqa: E731
+                a["x_q"], a["w_q"], a["w_scale"], a["bias"], a["inv_out"],
+                stride=stride, leaky=True, **kw)
+            nbytes, n_ops = conv_cost(b, *shape)
+            ho = (h + 2 * (k // 2) - k) // stride + 1
+            wo = (w + 2 * (k // 2) - k) // stride + 1
+            gemms = [(b * ho * wo, k * k * cin, cout)]
+            name = "conv_int8"
+        else:
+            shape = call[1:]
+            h, w, c, ch = shape
+            args = int8_block_operands(b, *shape, rng)
+            fn = lambda: block_int8(*args)  # noqa: E731
+            plain = lambda: block_int8_reference(*args)  # noqa: E731
+            nbytes, n_ops = block_cost(b, *shape)
+            gemms = [(b * h * w, c, ch), (b * h * w, 9 * ch, c)]
+            name = "block_int8"
+        k_ms = cuda_ms(fn, 20)
+        p_ms = cuda_ms(plain, 2, warmup=1)
+        lib_ms = int_mm_ms(gemms, rng)
+        b_ms, _ = bound(nbytes, n_ops, PEAK_INT8)
+        r = rec[name]
+        r["ms"] += count * float(np.median(k_ms))
+        r["plain_ms"] += count * float(np.median(p_ms))
+        r["library_ms"] += count * lib_ms
+        r["bound_ms"] += count * b_ms
+        r["t_bytes"] += count * nbytes / HBM * 1e3
+        r["t_ops"] += count * n_ops / PEAK_INT8 * 1e3
+        print(f"[kernels] {name} b={b} {shape} x{count} per trunk on {card}: kernel "
+              f"{quartiles(k_ms)}, {n_ops / (np.median(k_ms) * 1e-3) / 1e12:.1f} "
+              f"TOP/s; plain {quartiles(p_ms)}; _int_mm product {lib_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms")
+        if name == "conv_int8":
+            del a
+        else:
+            del args
+    for name, r in rec.items():
+        r["bound_by"] = "operations" if r.pop("t_ops") >= r.pop("t_bytes") else "bytes"
+        print(f"[kernels] {name} over one int8 trunk at b={b} on {card}: {r['ms']:.3f} "
+              f"ms (plain {r['plain_ms']:.1f} ms, _int_mm products "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return rec
+
+
+def int8_slice(tmp, files, fdm, card, dev):
+    """The int8 serving path through its entry point, then the bit-exact
+    checks at full int8. Returns (launch counts of the main path, the
+    full-int8 pipeline for timing, its calibration seconds)."""
+    from face_vijnana_yolov3_tpu_torch.api.config import load_conf
+    from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.models import darknet, quant
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_int8
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+
+    model = FaceDetectorModel(image_size=IMAGE_SIZE, device="cpu")
+    params, state = model.init_params(SEED)
+    darknet.perturb_batchnorm(params, state, model.ops, SEED + 1)
+    sd = params_from_jax(params, state)
+    confs = {}
+    for pin in (3, 0):
+        ckpt = os.path.join(tmp, f"fd_int8_tail{pin}.pt")
+        save_checkpoint(ckpt, sd, meta={"int8_tail": pin})
+        path = os.path.join(tmp, f"conf_int8_tail{pin}.json")
+        with open(path, "w") as f:
+            json.dump({"fd_conf": {
+                "mode": "test", "test_path": tmp,
+                "output_file_path": os.path.join(tmp, f"int8_tail{pin}.csv"),
+                "model_loading": True, "model_path": ckpt,
+                "int8_pallas_blocks": True,
+                "hps": {"face_conf_th": 0.05, "batch_size": 4},
+                "nn_arch": {"image_size": IMAGE_SIZE},
+            }}, f)
+        confs[pin] = load_conf(path).fd_conf
+
+    # The main path: test() calibrates on its first batch, then serves.
+    conv_int8.launches = block_int8.launches = nms_sweep.launches = 0
+    fd = fdm.FaceDetectorPipeline(confs[3], precision="int8")
+    fd.test()
+    torch.cuda.synchronize()
+    launches = {"conv_int8": conv_int8.launches, "block_int8": block_int8.launches,
+                "nms_sweep": nms_sweep.launches}
+    summary = check_csv(confs[3].output_file_path, len(files), "int8")
+    print(f"[int8] test mode, int8_pallas_blocks on, trainmeta pin int8_tail 3: "
+          f"{summary}; launches {launches}; tail chosen {fd.int8_tail_chosen} "
+          f"(self-check 1-boxF1 {fd.int8_calib_err:.4f} on the first batch)")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the int8 run skipped a kernel: {launches}")
+    if fd.int8_tail_chosen != 3 or fd._qparams.get("tail_start") != \
+            quant.tail_start_index(fd.model.ops, 3):
+        raise AssertionError("the trainmeta pin int8_tail 3 did not hold")
+
+    # Full int8 (pin 0), calibrated on 32 letterboxed images.
+    ops = fd.model.ops
+    lb = np.asarray([letterbox_host(imread(f) / 255, IMAGE_SIZE, "cubic")[0]
+                     for f in sorted(files)], np.float32)
+    fd0 = fdm.FaceDetectorPipeline(confs[0], precision="int8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fd0.calibrate_int8(np.concatenate([lb] * 4))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    print(f"[int8] calibrate_int8 on 32 images (pin 0: one candidate) on {card}: "
+          f"{calib_s:.2f} s; tail {fd0.int8_tail_chosen}, self-check 1-boxF1 "
+          f"{fd0.int8_calib_err:.4f}")
+    if fd0.int8_tail_chosen != 0 or "tail_start" in fd0._qparams:
+        raise AssertionError("pin 0 did not give full int8")
+    qp = fd0._qparams
+    x2 = torch.from_numpy(lb[:2]).to(dev)
+    with torch.inference_mode():
+        on = quant.apply_graph_quant(qp, x2, ops, fused_blocks=True)["trunk"]
+        off = quant.apply_graph_quant(qp, x2, ops, fused_blocks=False)["trunk"]
+    cands_on, counts_on = fd0.detect_batch(lb[:2])
+    fd0.conf.int8_pallas_blocks = False
+    cands_off, counts_off = fd0.detect_batch(lb[:2])
+    fd0.conf.int8_pallas_blocks = True
+    torch.cuda.synchronize()
+    s_out = torch.from_numpy(qp["act_scales"][-1].astype(np.float32))
+    q_on = torch.round(on.cpu() / s_out)
+    print(f"[int8] full int8 trunk {tuple(on.shape)}, fused blocks on vs off: "
+          f"torch.equal {torch.equal(on, off)}; detect_batch cands equal "
+          f"{np.array_equal(cands_on, cands_off)}, counts {counts_on.tolist()}; "
+          f"{float(((q_on != 0) & (q_on.abs() < 127)).float().mean()):.1%} of the "
+          f"int8 trunk output inside (0, 127)")
+    if not (torch.equal(on, off) and np.array_equal(cands_on, cands_off)
+            and np.array_equal(counts_on, counts_off)):
+        raise AssertionError("the fused blocks change the int8 trunk")
+
+    with torch.inference_mode():
+        ref = fd0.model.apply_folded(fd0.model.fold(), x2, compute_dtype=torch.float32)
+        head = fd0.model.apply_quant(qp, x2, fused_blocks=True)
+    nrmse = float((head - ref).square().mean().sqrt() / ref.square().mean().sqrt())
+    print(f"[int8] full int8 head vs the folded f32 head, 2 images: NRMSE {nrmse:.4f} "
+          f"(tol {INT8_NRMSE_TOL}); the box-F1 self-check above reads 1.0 on these "
+          f"weights because zero-area boxes make its IoU matrix NaN")
+    if not nrmse <= INT8_NRMSE_TOL:
+        raise AssertionError("the int8 head is far from the f32 one")
+
+    qp_cpu = quant.to_device(qp, "cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_trunk = quant.apply_graph_quant(qp_cpu, x2.cpu(), ops, fused_blocks=True)["trunk"]
+        head_gpu = fd0.model.apply_quant(qp, x2, fused_blocks=True).cpu()
+        head_cpu = fd0.model.apply_quant(qp_cpu, x2.cpu(), fused_blocks=True)
+    cpu_s = time.perf_counter() - t0
+    head_err = float((head_gpu - head_cpu).abs().max())
+    head_max = float(head_cpu.abs().max())
+    print(f"[int8] card vs CPU plain versions, full int8 at {IMAGE_SIZE}², 2 images: trunk "
+          f"torch.equal {torch.equal(on.cpu(), cpu_trunk)} (CPU {cpu_s:.1f} s); bf16 "
+          f"head max |diff| {head_err:.4g}, max |head| {head_max:.4g} (tol "
+          f"{INT8_HEAD_TOL} of max |head|)")
+    if not torch.equal(on.cpu(), cpu_trunk):
+        raise AssertionError("the card's int8 trunk differs from the CPU's")
+    if not (np.isfinite(head_gpu.numpy()).all() and head_err <= INT8_HEAD_TOL * head_max):
+        raise AssertionError("the card's bf16 head disagrees with the CPU's")
+    return launches, fd0, calib_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -131,6 +516,7 @@ def main() -> int:
         load_checkpoint,
         save_checkpoint,
     )
+    from face_vijnana_yolov3_tpu_torch.models import darknet, quant
     from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
     from face_vijnana_yolov3_tpu_torch.ops.decode import decode_face_head
     from face_vijnana_yolov3_tpu_torch.ops.letterbox import (
@@ -152,6 +538,7 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
+    t_start = time.perf_counter()
 
     # 1. device
     card = nvidia_smi()
@@ -162,10 +549,14 @@ def main() -> int:
 
     # 2. build
     path, build_s = kernels.build()
-    kernels.load()
-    print(f"[build] {path.name} built in {build_s:.2f} s")
+    lib = kernels.load()
+    entry_points = [n for n in ("fvy_nms_sweep", "fvy_conv_int8", "fvy_block_int8")
+                    if hasattr(lib, n)]
+    print(f"[build] {path.name} built in {build_s:.2f} s; entry points {entry_points}")
+    if len(entry_points) != 3:
+        raise AssertionError("the library lacks a kernel")
 
-    # 3. kernel vs plain version at the main path's N, B=128
+    # 3. kernels vs plain versions, then their times
     max_err = 0.0
     for kind in ("float", "integer", "degenerate"):
         boxes, scores = sorted_case(kind, KERNEL_B, KERNEL_N, rng)
@@ -176,14 +567,25 @@ def main() -> int:
             if not torch.equal(got, want):
                 raise AssertionError(f"nms_sweep != plain version ({kind}, th {th})")
             max_err = max(max_err, float((got - want).abs().max()))
-            print(f"[kernel] nms_sweep {kind} th={th}: torch.equal with the plain "
+            print(f"[kernels] nms_sweep {kind} th={th}: torch.equal with the plain "
                   f"version; suppressed {int(((want == 0) & (scores > 0)).sum())} "
                   f"of {int((scores > 0).sum())} live rows")
     boxes, scores = sorted_case("integer", KERNEL_B, KERNEL_N, rng)
     k_ms = cuda_ms(lambda: nms_sweep(boxes, scores, 0.5), 50)
     p_ms = cuda_ms(lambda: nms_sweep_reference(boxes, scores, 0.5), 20)
-    print(f"[kernel] B={KERNEL_B} N={KERNEL_N} on {card}: kernel {quartiles(k_ms)}; "
-          f"plain {quartiles(p_ms)}")
+    kept = nms_sweep(boxes, scores, 0.5) > 0
+    # IoU tests this input needs: each kept row i against every later row.
+    pairs = int((kept * (KERNEL_N - 1 - torch.arange(KERNEL_N, device=dev))).sum())
+    nms_bound, nms_bound_by = bound(KERNEL_B * KERNEL_N * (16 + 4 + 4),
+                                    NMS_OPS_PER_PAIR * pairs, PEAK_F32)
+    print(f"[kernels] nms_sweep B={KERNEL_B} N={KERNEL_N} on {card}: kernel "
+          f"{quartiles(k_ms)}; plain {quartiles(p_ms)}; bound {nms_bound * 1e3:.3f} us "
+          f"by {nms_bound_by} ({pairs} IoU tests)")
+    ops = darknet.trunk_graph()
+    int8_err = check_int8_kernels(ops, rng)
+    int8_rec = time_int8_kernels(ops, card, rng)
+    torch.cuda.empty_cache()
+    print(f"[kernels] done at {time.perf_counter() - t_start:.0f} s")
 
     # 4. slice: the CLI in test mode at 416², f32, batch 4
     with tempfile.TemporaryDirectory() as tmp:
@@ -204,21 +606,13 @@ def main() -> int:
         nms_sweep.launches = 0
         fd = fdm.main([f"--conf={conf}"])
         torch.cuda.synchronize()
-        launches = nms_sweep.launches
-        rows = [line.split(",") for line in open(csv).read().splitlines()]
-        per_image = collections.Counter(r[0] for r in rows)
-        vals = np.asarray([[float(v) for v in r[1:]] for r in rows])
-        print(f"[slice] CLI test mode: {len(rows)} rows over {len(per_image)} of "
-              f"{len(files)} images (max {max(per_image.values(), default=0)} per "
-              f"image); nms_sweep launches {launches}; params on "
-              f"{next(fd.model.parameters()).device}; TF32 flags in serving: "
-              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f32_launches = nms_sweep.launches
+        summary = check_csv(csv, len(files), "f32")
+        print(f"[slice] CLI test mode: {summary}; nms_sweep launches {f32_launches}; "
+              f"params on {next(fd.model.parameters()).device}; TF32 flags in "
+              f"serving: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
               f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-        if not rows or max(per_image.values()) > 60:
-            raise AssertionError(f"solution_fd.csv rows per image: {per_image}")
-        if not np.isfinite(vals).all() or (vals[:, 2:4] < 0).any():
-            raise AssertionError("non-finite or negative-size rows in solution_fd.csv")
-        if launches == 0:
+        if f32_launches == 0:
             raise AssertionError("the CLI run never launched the nms_sweep kernel")
         if next(fd.model.parameters()).device.type != dev.type:
             raise AssertionError("the pipeline's parameters are not on the card")
@@ -283,35 +677,73 @@ def main() -> int:
         if not (torch.equal(counts_k.cpu(), counts_p)
                 and torch.equal(cands_k.cpu(), cands_p)):
             raise AssertionError("kernel postprocess disagrees with the plain one")
+        print(f"[slice] done at {time.perf_counter() - t_start:.0f} s")
 
-    # 5. timing: detect_batch img/s over distinct inputs
+        # 5. int8: the slice's main path, then the bit-exact checks
+        launches, fd8, calib_s = int8_slice(tmp, files, fdm, card, dev)
+        print(f"[int8] done at {time.perf_counter() - t_start:.0f} s")
+
+    # 6. timing: detect_batch img/s over distinct inputs
     rates = {}
-    for b in TIMING_BATCHES:
-        inputs = [rng.uniform(size=(b, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
-                  for _ in range(6)]
-        next_input = itertools.cycle(inputs).__next__
-        ms = cuda_ms(lambda: fd.detect_batch(next_input()), 12)
-        with torch.inference_mode():
-            next_x = itertools.cycle(
-                [torch.from_numpy(a).to(dev) for a in inputs[:2]]).__next__
-            next_head = itertools.cycle([fd.model(next_x()) for _ in range(2)]).__next__
-            fwd_ms = cuda_ms(lambda: fd.model(next_x()), 12)
-            pp_ms = cuda_ms(lambda: face_postprocess_batch(next_head(), fd._pp_cfg), 12)
-        rates[b] = b / (np.median(ms) / 1e3)
-        print(f"[timing] detect_batch b={b} on {card}: {rates[b]:.1f} img/s; "
-              f"detect_batch {quartiles(ms)}; trunk+head {quartiles(fwd_ms)}; "
-              f"postprocess {quartiles(pp_ms)}")
+    for label, pipe, batches in (("int8", fd8, INT8_TIMING_BATCHES),
+                                 ("f32", fd, F32_TIMING_BATCHES)):
+        for b in batches:
+            inputs = [rng.uniform(size=(b, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+                      for _ in range(3)]
+            next_input = itertools.cycle(inputs).__next__
+            ms = cuda_ms(lambda: pipe.detect_batch(next_input()), 8, warmup=2)
+            rates[(label, b)] = b / (np.median(ms) / 1e3)
+            with torch.inference_mode():
+                xd = [torch.from_numpy(a).to(dev) for a in inputs[:2]]
+                next_x = itertools.cycle(xd).__next__
+                if label == "int8":
+                    fwd = {blocks: cuda_ms(lambda blocks=blocks: quant.apply_graph_quant(
+                        pipe._qparams, next_x(), pipe.model.ops,
+                        fused_blocks=blocks), 8, warmup=2) for blocks in (True, False)}
+                    heads = [pipe.model.apply_quant(pipe._qparams, t, fused_blocks=True)
+                             for t in xd]
+                    fwd_txt = (f"int8 trunk, blocks on {quartiles(fwd[True])}; blocks "
+                               f"off {quartiles(fwd[False])}")
+                else:
+                    fwd_ms = cuda_ms(lambda: pipe.model(next_x()), 8, warmup=2)
+                    heads = [pipe.model(t) for t in xd]
+                    fwd_txt = f"trunk+head {quartiles(fwd_ms)}"
+                next_head = itertools.cycle(heads).__next__
+                pp_ms = cuda_ms(lambda: face_postprocess_batch(next_head(), pipe._pp_cfg), 8)
+            print(f"[timing] {label} detect_batch b={b} on {card}: "
+                  f"{rates[(label, b)]:.1f} img/s; detect_batch {quartiles(ms)}; "
+                  f"{fwd_txt}; postprocess {quartiles(pp_ms)}")
+            del inputs, xd, heads
+            torch.cuda.empty_cache()
+    print(f"[timing] int8 calibration (32 images, one candidate) {calib_s:.2f} s; "
+          f"total run {time.perf_counter() - t_start:.0f} s")
 
-    print(json.dumps({"kernels": [{
+    kernel_lines = [{
         "name": "nms_sweep",
         "route": "cuda",
         "source": "face_vijnana_yolov3_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "face_vijnana_yolov3_tpu/ops/pallas_nms.py:35",
-        "launches": launches,
+        "launches": launches["nms_sweep"],
         "max_abs_err": max_err,
         "ms": float(np.median(k_ms)),
         "plain_ms": float(np.median(p_ms)),
-    }]}))
+        "bound_ms": nms_bound,
+        "bound_by": nms_bound_by,
+        "library_ms": None,
+    }]
+    for name, src, replaces in (
+            ("conv_int8", "face_vijnana_yolov3_tpu_torch/csrc/conv_int8.cu",
+             "face_vijnana_yolov3_tpu/models/quant.py:666"),
+            ("block_int8", "face_vijnana_yolov3_tpu_torch/csrc/block_int8.cu",
+             "face_vijnana_yolov3_tpu/ops/pallas_block.py:88")):
+        r = int8_rec[name]
+        kernel_lines.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": int8_err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Face detection serving entry point: evaluate / test, config-JSON driven.
 
-Port of the f32 serving path of face_vijnana_yolov3_tpu/api/face_detection.py
-(FaceDetectorPipeline, `main`): the same `solution_fd.csv` rows
-`file,x,y,w,h,score` (at most 60 per image), annotated JPEGs in
-`<test_path>/results/` and `ratios.csv` in evaluate mode.
+Port of the f32 and int8 serving paths of
+face_vijnana_yolov3_tpu/api/face_detection.py (FaceDetectorPipeline,
+`main`): the same `solution_fd.csv` rows `file,x,y,w,h,score` (at most 60
+per image), annotated JPEGs in `<test_path>/results/` and `ratios.csv` in
+evaluate mode. Everything runs on the CUDA card unless the caller passes
+`device="cpu"`; without a card the default raises.
 
     python -m face_vijnana_yolov3_tpu_torch.api.face_detection --conf=CONF.json \
         [fd_conf.mode=test] [--set fd_conf.hps.batch_size=8]
@@ -11,10 +13,17 @@ Port of the f32 serving path of face_vijnana_yolov3_tpu/api/face_detection.py
 Each batch runs letterbox (host cv2, or the two-matmul device letterbox of
 `detect_batch_fused`), the trunk and head (models/detector.py) and the
 batched postprocess whose NMS sweep is the CUDA kernel of csrc/nms_sweep.cu.
+`precision="int8"` calibrates on the first batch (`calibrate_int8`: fold,
+per-channel scales, the box-F1 self-check over bf16 tails, or the tail
+pinned in the checkpoint's trainmeta sidecar) and then serves the int8
+trunk (csrc/conv_int8.cu; with `int8_pallas_blocks`, the residual blocks of
+stages 3-5 through csrc/block_int8.cu) with a bf16 head.
 
-Not carried yet (ROADMAP.md queue 1): bf16 and int8 serving, training, the
-legacy `--mode` argparse CLI, Keras-h5 and Orbax weights, the native JPEG
-loader and its scaled decode. Deliberate divergence: eager PyTorch has no
+Not carried yet (ROADMAP.md queue 1): bf16 serving, the msegrid
+calibrator, PTQ bias correction and distillation QAT, training, the legacy
+`--mode` argparse CLI, Keras-h5 and Orbax weights, the native JPEG loader
+and its scaled decode. `bf16_front_mode="int8"` is refused: it is not
+carried (measured harmful in the JAX package). Deliberate divergence: eager PyTorch has no
 per-shape compile to amortise, so `detect_batch_fused` does not pad staged
 buffers to 128-multiples or chunks to a fixed batch as the JAX jit does;
 results are unchanged by that padding.
@@ -31,11 +40,18 @@ import time
 import numpy as np
 import torch
 
-from face_vijnana_yolov3_tpu.api.config import FdConf, load_conf, apply_overrides
-from face_vijnana_yolov3_tpu.utils.io import imread, imsave
+from face_vijnana_yolov3_tpu_torch.api.config import (
+    FdConf,
+    apply_overrides,
+    load_conf,
+)
 from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
-from face_vijnana_yolov3_tpu_torch.core.checkpoints import load_checkpoint
+from face_vijnana_yolov3_tpu_torch.core.checkpoints import (
+    load_checkpoint,
+    load_train_meta,
+)
 from face_vijnana_yolov3_tpu_torch.data.pipeline import prefetch_batches
+from face_vijnana_yolov3_tpu_torch.models import quant
 from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import (
     letterbox_geometry,
@@ -50,12 +66,20 @@ from face_vijnana_yolov3_tpu_torch.ops.resize import (
     letterbox_device_matmul,
     letterbox_matrices,
 )
+from face_vijnana_yolov3_tpu_torch.utils.io import imread, imsave
 
 DEBUG = True
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """`device`, or the CUDA card when None; a CUDA device without a card
+    raises instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: the port serves on the card by "
+            "default; pass device='cpu' to run on the CPU")
+    return dev
 
 
 class FaceDetectorPipeline:
@@ -63,16 +87,32 @@ class FaceDetectorPipeline:
 
     def __init__(self, conf: FdConf, *, precision: str = "float32",
                  device: torch.device | str | None = None):
-        if precision != "float32":
+        if getattr(conf, "bf16_front_mode", "f32") == "int8":
             raise NotImplementedError(
-                f"precision={precision!r}: the port serves float32 only; bf16 "
-                "is ROADMAP.md queue 1 item 1, int8 items 5-6")
+                "bf16_front_mode='int8' is not carried into the port: it "
+                "collapses AP50 in the JAX package (ROADMAP.md, code the "
+                "port should not carry)")
+        if precision == "int8":
+            if getattr(conf, "int8_qat_steps", 0):
+                raise NotImplementedError(f"int8_qat_steps > 0: distillation "
+                                          f"QAT is {quant.NOT_PORTED}")
+            if getattr(conf, "int8_bias_correct", False):
+                raise NotImplementedError(f"int8_bias_correct: bias correction "
+                                          f"is {quant.NOT_PORTED}")
+            pct = getattr(conf, "int8_calib_percentile", None)
+            if isinstance(pct, str) and pct != "auto":
+                raise NotImplementedError(f"int8_calib_percentile={pct!r}: the "
+                                          f"msegrid calibrator is {quant.NOT_PORTED}")
+        elif precision != "float32":
+            raise NotImplementedError(
+                f"precision={precision!r}: the port serves float32 and int8; "
+                "bf16 is ROADMAP.md queue 1 item 1")
+        self.device = resolve_device(device)
         # The f32 contract (JAX Precision.HIGHEST): cuDNN convs default to
         # TF32 on the card, which keeps about three decimal digits.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.conf = conf
-        self.device = torch.device(device) if device is not None else default_device()
         self.hps = vars(conf.hps) if not isinstance(conf.hps, dict) else conf.hps
         self.nn_arch = (
             vars(conf.nn_arch) if not isinstance(conf.nn_arch, dict) else conf.nn_arch
@@ -85,8 +125,15 @@ class FaceDetectorPipeline:
             out_channels=self.nn_arch["bb_info_c_size"],
             device=self.device,
         )
+        # The trainmeta sidecar: a QAT checkpoint, and the int8 serving tail
+        # measured at release time (None = no pin).
+        self._ckpt_qat = False
+        self._ckpt_int8_tail = None
         if conf.model_loading:
             sd = load_checkpoint(conf.model_path)
+            tm = load_train_meta(conf.model_path)
+            self._ckpt_qat = bool(tm.get("qat", False))
+            self._ckpt_int8_tail = tm.get("int8_tail")
         elif conf.yolov3_base_model_load and os.path.exists("yolov3_base.h5"):
             raise NotImplementedError(
                 "yolov3_base.h5 is a Keras h5 trunk cache; Keras-h5 import is "
@@ -112,13 +159,68 @@ class FaceDetectorPipeline:
             num_cands=self.hps["num_cands"],
         )
         self._mat_cache: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._qparams: dict | None = None
+
+    # -------------------------------------------------------------- int8
+
+    @torch.inference_mode()
+    def calibrate_int8(self, images, percentile=None):
+        """Calibrate int8 serving on a representative letterboxed batch
+        (api/face_detection.py:153-289 of the JAX package).
+
+        Folds conv+BN, calibrates per-channel scales on the first 16 images
+        and quantizes the weights (models/quant.py). Unless
+        conf.int8_bf16_tail or conf.int8_bf16_ops fix the configuration (or
+        conf.int8_tail_auto is off), the serving tail is chosen strongest
+        evidence first: the checkpoint's measured `int8_tail` pin, else full
+        int8 for a QAT checkpoint, else the ladder (0, 2, 4, 5, 6, 8) scored
+        by the box-F1 self-check on up to 32 images. detect_batch and
+        detect_batch_fused call this on their first batch.
+        """
+        if percentile is None:
+            percentile = getattr(self.conf, "int8_calib_percentile", 0.0) or None
+        folded = self.model.fold()
+        x = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor)
+                            else images, dtype=torch.float32, device=self.device)
+        tail_cfg = getattr(self.conf, "int8_bf16_tail", 0)
+        bf16_ops = tuple(getattr(self.conf, "int8_bf16_ops", ()) or ())
+        if not tail_cfg and not bf16_ops and getattr(self.conf, "int8_tail_auto", True):
+            if self._ckpt_int8_tail is not None:
+                tails = (int(self._ckpt_int8_tail),)
+            elif self._ckpt_qat:
+                tails = (0,)
+            else:
+                tails = (0, 2, 4, 5, 6, 8)
+            q, tail, err = quant.quantize_autotail(
+                self.model, folded, x[:32], percentile=percentile, tails=tails,
+                scorer=quant.detection_box_f1_scorer(self._pp_cfg, self.device))
+            self._qparams = quant.to_device(q, self.device)
+            self.int8_tail_chosen = tail
+            self.int8_calib_err = err
+            if tail:
+                print(f"[calibrate_int8] self-check 1-boxF1 {err:.4f} over "
+                      f"threshold — serving with bf16 tail {tail}")
+            return
+        self._qparams = quant.to_device(
+            self.model.quantize(folded, x[:16], percentile=percentile,
+                                bf16_tail_blocks=tail_cfg, bf16_ops=bf16_ops),
+            self.device)
+        self.int8_tail_chosen = tail_cfg
 
     # -------------------------------------------------------------- detect
 
     @torch.inference_mode()
     def _detect(self, images: torch.Tensor):
         """(B, S, S, 3) f32 on the device → (cands, counts) on the device."""
-        head = self.model(images)
+        if self.precision == "int8":
+            if self._qparams is None:
+                raise RuntimeError(
+                    "int8 precision requires calibrate_int8() before detect")
+            head = self.model.apply_quant(
+                self._qparams, images,
+                fused_blocks=bool(getattr(self.conf, "int8_pallas_blocks", False)))
+        else:
+            head = self.model(images)
         return face_postprocess_batch(head, self._pp_cfg)
 
     def detect_batch(self, images):
@@ -126,6 +228,8 @@ class FaceDetectorPipeline:
         (cands (B, num_cands, 6), counts (B,)) as numpy: forward, decode,
         NMS and ascending-score candidate selection, on the device."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        if self.precision == "int8" and self._qparams is None:
+            self.calibrate_int8(x)
         cands, counts = self._detect(x)
         return cands.cpu().numpy(), counts.cpu().numpy()
 
@@ -175,6 +279,13 @@ class FaceDetectorPipeline:
         s = torch.as_tensor(staged, device=self.device)
         s = (s.to(torch.float32) * (1.0 / 255.0) if s.dtype == torch.uint8
              else s.to(torch.float32))
+        if self.precision == "int8" and self._qparams is None:
+            # Up to 32 images: the box-F1 self-check needs at least 16 to
+            # resolve tail improvements (quantize_autotail).
+            k = min(32, n)
+            with torch.inference_mode():
+                self.calibrate_int8(letterbox_device_matmul(
+                    s[:k], row_ms[:k], col_ms[:k]))
         with torch.inference_mode():
             lb = letterbox_device_matmul(s, row_ms, col_ms)
         cands, counts = self._detect(lb)
@@ -282,7 +393,7 @@ class FaceDetectorPipeline:
     def evaluate(self):
         import pandas as pd
 
-        from face_vijnana_yolov3_tpu.utils.drawing import draw_boxes
+        from face_vijnana_yolov3_tpu_torch.utils.drawing import draw_boxes
 
         test_path = self.conf.test_path
         output_file_path = self.conf.output_file_path
@@ -384,8 +495,10 @@ def _parse_cli(argv: list[str]) -> tuple[str | None, list[str]]:
     return conf_path, overrides
 
 
-def main(argv: list[str] | None = None) -> FaceDetectorPipeline:
-    """Run the mode `fd_conf.mode` names; returns the pipeline it built."""
+def main(argv: list[str] | None = None, *,
+         device: torch.device | str | None = None) -> FaceDetectorPipeline:
+    """Run the mode `fd_conf.mode` names on `device` (the CUDA card when
+    None); returns the pipeline it built."""
     argv = sys.argv[1:] if argv is None else argv
     if any(a == "--mode" or a.startswith("--mode=") for a in argv):
         raise NotImplementedError(
@@ -400,7 +513,7 @@ def main(argv: list[str] | None = None) -> FaceDetectorPipeline:
             f"mode {fd_conf.mode!r}: detector training is ROADMAP.md queue 1 "
             "item 8; the port serves evaluate and test")
 
-    fd = FaceDetectorPipeline(fd_conf)
+    fd = FaceDetectorPipeline(fd_conf, device=device)
     ts = time.time()
     if fd_conf.mode == "evaluate":
         fd.evaluate()

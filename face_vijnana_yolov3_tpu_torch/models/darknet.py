@@ -19,8 +19,11 @@ State-dict keys keep the JAX tree names: `conv_{i}.weight` (OIHW),
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
@@ -165,6 +168,33 @@ def init_graph_params(ops: list[tuple], seed: int | None = None):
     return params, state
 
 
+def perturb_batchnorm(params: dict, state: dict, ops: list[tuple], seed: int):
+    """Seeded BN statistics in place of init_graph_params' identity BN, for
+    runs on random weights (in place; returns the trees).
+
+    With gamma = 0 on every residual-ending conv, each residual branch folds
+    to a zero kernel, and the int8 residual blocks would multiply zeros.
+    Here every BN draws gamma ~ U(0.5, 1.5), beta and mean ~ N(0, 0.1) and
+    var ~ U(0.5, 1.5) from `np.random.default_rng(seed)`, in key order,
+    except the residual-ending convs, whose gamma ~ U(0.05, 0.15):
+    branches of full gain grow the residual stream block by block until the
+    head's logits lie far outside the sigmoid's range; small ones keep them
+    O(1), so the postprocess finds boxes.
+    """
+    rng = np.random.default_rng(seed)
+    residual_end = {ops[i][1] for i in range(len(ops) - 1)
+                    if ops[i][0] == "conv" and ops[i + 1][0] == "add"}
+    for key in sorted(k for k in params if k.startswith("bnorm_")):
+        c = params[key]["gamma"].shape[0]
+        lo, hi = ((0.05, 0.15) if int(key.split("_")[1]) in residual_end
+                  else (0.5, 1.5))
+        params[key]["gamma"] = rng.uniform(lo, hi, c).astype(np.float32)
+        params[key]["beta"] = rng.normal(0, 0.1, c).astype(np.float32)
+        state[key]["mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+        state[key]["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    return params, state
+
+
 # ------------------------------------------------------------------ modules
 
 class BatchNormEval(nn.Module):
@@ -236,3 +266,118 @@ class Darknet(nn.Module):
         """NHWC f32 batch → {output name: NHWC f32 tensor}, like the JAX apply."""
         outs = self.run_nchw(x.permute(0, 3, 1, 2).contiguous())
         return {k: v.permute(0, 2, 3, 1) for k, v in outs.items()}
+
+
+# ------------------------------------------------------------------ folded fast path
+
+def fold_graph_params(state_dict: dict, ops: list[tuple]) -> dict:
+    """Fold eval BatchNorm into the conv kernels and biases (darknet.py:535-554).
+
+    `state_dict` holds the module names (`conv_{i}.weight` OIHW,
+    `bnorm_{i}.gamma/beta/mean/var`, `conv_{i}.bias` for convs without BN).
+    Returns {f"conv_{i}": {"kernel": OIHW f32, "bias": f32}} on the same
+    device, with the JAX arithmetic, op for op: scale = gamma / sqrt(var +
+    eps) (not rsqrt), kernel * scale, bias = beta - mean * scale, each a
+    separate IEEE rounding as the JAX package's eager fold computes them, so
+    the folded params are bit-identical.
+    """
+    folded = {}
+    for idx, _in_c, _out_c, _k, _stride, bn in conv_layout(ops):
+        w = state_dict[f"conv_{idx}.weight"]
+        if bn:
+            gamma = state_dict[f"bnorm_{idx}.gamma"]
+            beta = state_dict[f"bnorm_{idx}.beta"]
+            mean = state_dict[f"bnorm_{idx}.mean"]
+            var = state_dict[f"bnorm_{idx}.var"]
+            # sqrt through float64 is the correctly rounded f32 sqrt (torch's
+            # vectorised f32 sqrt on the CPU is not, XLA's is).
+            scale = gamma / torch.sqrt((var + BN_EPS).double()).float()
+            folded[f"conv_{idx}"] = {
+                "kernel": w * scale[:, None, None, None],
+                "bias": beta - mean * scale,
+            }
+        else:
+            folded[f"conv_{idx}"] = {"kernel": w.clone(),
+                                     "bias": state_dict[f"conv_{idx}.bias"].clone()}
+    return folded
+
+
+def front_end_index(ops: list[tuple], n_blocks: int) -> int:
+    """Op index where reduced precision may begin when the first `n_blocks`
+    graph segments run f32 (darknet.py:557-569): segment 1 is everything
+    before the first ("save", ...) block opener, each further segment one
+    residual block."""
+    starts = [i for i, op in enumerate(ops) if op[0] == "save"]
+    if n_blocks <= 0 or n_blocks > len(starts):
+        raise ValueError(f"n_blocks must be in 1..{len(starts)}")
+    return starts[n_blocks - 1]
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for cuDNN convs and cuBLAS matmuls inside the block (the JAX
+    f32 contract is Precision.HIGHEST); the previous flags come back after."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def conv_nhwc(h: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:
+    """NHWC activations × OIHW kernel, pad k//2 on both sides, in the
+    tensors' own dtype (a bf16 conv accumulates in f32 and returns bf16,
+    as XLA's bf16 conv with no preferred type does) → NHWC."""
+    k = kernel.shape[-1]
+    y = F.conv2d(h.permute(0, 3, 1, 2), kernel, stride=stride, padding=k // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+def apply_graph_folded(folded: dict, x: torch.Tensor, ops: list[tuple], *,
+                       compute_dtype=torch.bfloat16, f32_front_ops: int = 0,
+                       observe=None) -> dict[str, torch.Tensor]:
+    """Inference forward with conv+BN folded (darknet.py:572-625), NHWC.
+
+    Each conv runs in `compute_dtype` (bf16: bf16 operands and output), adds
+    its f32 bias in f32, applies leaky and casts back to the op dtype; ops
+    before `f32_front_ops` run f32 whatever `compute_dtype` is. That guard
+    runs at Precision.HIGH (bf16x3) in the JAX package, which has no GPU
+    counterpart: here it is plain f32 with TF32 off, a deliberate
+    divergence. `observe(h)`, when given, sees the activation after every
+    op (the calibration walk of models/quant.py). Outputs are f32.
+    """
+    saved: dict[str, torch.Tensor] = {}
+    outputs: dict[str, torch.Tensor] = {}
+    h = x
+    with exact_f32():
+        for i, op in enumerate(ops):
+            kind = op[0]
+            op_dtype = torch.float32 if i < f32_front_ops else compute_dtype
+            if kind == "conv":
+                _, idx, _out_c, _k, stride, _bn, act = op
+                p = folded[f"conv_{idx}"]
+                h = conv_nhwc(h.to(op_dtype), p["kernel"].to(op_dtype), stride)
+                h = h + p["bias"]
+                if act:
+                    h = leaky(h)
+                h = h.to(op_dtype)
+            elif kind in ("save", "mark"):
+                saved[op[1]] = h
+            elif kind == "add":
+                h = saved[op[1]] + h
+            elif kind == "restore":
+                h = saved[op[1]]
+            elif kind == "concat":
+                h = torch.cat([h, saved[op[1]]], dim=-1)
+            elif kind == "upsample":
+                h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            elif kind == "output":
+                outputs[op[1]] = h.float()
+            else:
+                raise ValueError(f"unknown op {op}")
+            if observe is not None:
+                observe(h)
+    return outputs

@@ -1,12 +1,16 @@
 """Face detector: truncated Darknet-53 trunk + 6-channel linear 3x3 head.
 
-Port of face_vijnana_yolov3_tpu/models/detector.py:20-122 (f32 eval path):
-(B, S, S, 3) NHWC → trunk conv_0..73 → 3x3 'same' linear conv → (B, S/32,
-S/32, 6) raw [obj, bx, by, bw, bh, score] logits, NHWC like the JAX apply.
+Port of face_vijnana_yolov3_tpu/models/detector.py:20-164: (B, S, S, 3) NHWC
+→ trunk conv_0..73 → 3x3 'same' linear conv → (B, S/32, S/32, 6) raw [obj,
+bx, by, bw, bh, score] logits, NHWC like the JAX apply. Three forwards: the
+module's own (eval BatchNorm, f32), `apply_folded` (BN folded, f32 or bf16)
+and `apply_quant` (int8 trunk, bf16 head), the last two on explicit param
+dicts as in the JAX package.
 
 The JAX f32 path asks for Precision.HIGHEST (detector.py:26-28); the
 counterpart on the card is cuDNN and cuBLAS with TF32 off, which
-FaceDetectorPipeline sets (api/face_detection.py).
+FaceDetectorPipeline sets (api/face_detection.py) and the folded f32 paths
+set for themselves (darknet.exact_f32).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 from torch import nn
 
 from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
-from face_vijnana_yolov3_tpu_torch.models import darknet
+from face_vijnana_yolov3_tpu_torch.models import darknet, quant
 
 
 def init_head_params(seed: int, out_channels: int = 6) -> dict:
@@ -70,3 +74,56 @@ class FaceDetectorModel(darknet.Darknet):
         """(B, S, S, 3) NHWC f32 → (B, S/32, S/32, out_channels) NHWC f32."""
         feat = self.run_nchw(x.permute(0, 3, 1, 2).contiguous())["trunk"]
         return self.head(feat).permute(0, 2, 3, 1)
+
+    # -------------------------------------------------------------- folded
+
+    def fold(self) -> dict:
+        """Folded params of this module's weights (detector.py:102-105):
+        {"conv_{i}": {"kernel" OIHW, "bias"}, "head": {...}} on its device."""
+        folded = darknet.fold_graph_params(self.state_dict(), self.ops)
+        folded["head"] = {"kernel": self.head.weight.detach().clone(),
+                          "bias": self.head.bias.detach().clone()}
+        return folded
+
+    def apply_folded(self, folded: dict, x: torch.Tensor, *,
+                     compute_dtype=torch.bfloat16, f32_front_blocks: int = 0):
+        """Folded trunk + head (detector.py:107-122): (B, S, S, 3) → (B,
+        S/32, S/32, 6) f32. f32_front_blocks keeps the first N graph
+        segments f32 (darknet.apply_graph_folded)."""
+        front = (darknet.front_end_index(self.ops, f32_front_blocks)
+                 if f32_front_blocks else 0)
+        outs = darknet.apply_graph_folded(folded, x, self.ops,
+                                          compute_dtype=compute_dtype,
+                                          f32_front_ops=front)
+        return head_conv(outs["trunk"].to(compute_dtype), folded["head"],
+                         compute_dtype)
+
+    # -------------------------------------------------------------- int8 serving
+
+    def quantize(self, folded: dict, x_calib: torch.Tensor, *, percentile=None,
+                 bf16_tail_blocks: int = 0, act_scales=None,
+                 bias_correct: bool = False, bf16_ops: tuple = ()) -> dict:
+        """Calibrated int8 qparams from folded params (models/quant.py)."""
+        return quant.quantize_folded(
+            folded, x_calib, self.ops, percentile=percentile,
+            bf16_tail_blocks=bf16_tail_blocks, act_scales=act_scales,
+            bias_correct=bias_correct, bf16_ops=bf16_ops)
+
+    def apply_quant(self, qparams: dict, x: torch.Tensor, *,
+                    head_dtype=torch.bfloat16, fused_blocks: bool = False):
+        """int8 trunk + bf16 head (detector.py:152-164); same (B, S/32, S/32,
+        6) f32 contract. fused_blocks runs the 20 eligible residual blocks
+        through the fused block kernel (ops/block_int8.py)."""
+        qparams = quant.to_device(qparams, x.device)
+        outs = quant.apply_graph_quant(qparams, x, self.ops,
+                                       fused_blocks=fused_blocks)
+        return head_conv(outs["trunk"].to(head_dtype), qparams["head"],
+                         head_dtype)
+
+
+def head_conv(feat: torch.Tensor, head: dict, compute_dtype) -> torch.Tensor:
+    """3x3 'same' linear head conv (detector.py:20-41), NHWC: f32 with TF32
+    off, or bf16 operands with a bf16 result, then + the f32 bias in f32."""
+    with darknet.exact_f32():
+        h = darknet.conv_nhwc(feat, head["kernel"].to(compute_dtype), 1)
+    return (h + head["bias"]).float()

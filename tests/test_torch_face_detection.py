@@ -106,8 +106,9 @@ def slice_run(tmp_path_factory):
                 "nn_arch": {"image_size": 64},
             }}, f)
         cli = port_fd.main([f"--conf={tmp / 'conf.json'}", "--set",
-                            f"fd_conf.output_file_path={tmp / 'port_cli.csv'}"])
-        assert cli.device == port_fd.default_device()
+                            f"fd_conf.output_file_path={tmp / 'port_cli.csv'}"],
+                           device="cpu")
+        assert cli.device == torch.device("cpu")
     finally:
         os.chdir(cwd)
     return dict(out, tmp=tmp, testdir=testdir, jfd=jfd, pfd=pfd, ckpt=ckpt)

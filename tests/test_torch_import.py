@@ -1,8 +1,12 @@
-"""The PyTorch port never imports jax.
+"""The PyTorch port imports neither jax nor any module of the JAX package.
 
-conftest.py has already imported jax into this process, so the check runs in
-a fresh interpreter: import the port, build a small detector and run
-`detect_batch` on the CPU, then assert `jax` is absent from sys.modules.
+conftest.py has already imported jax into this process, so the runtime check
+runs in a fresh interpreter: import the port, build a small detector and run
+f32 and int8 `detect_batch` on the CPU (the int8 one calibrates and runs the
+int8 convs and the fused residual blocks), then assert that neither `jax`
+nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
+every source of the package and chip_smoke.py: no import of either, and no
+allow-list.
 """
 
 import ast
@@ -14,6 +18,7 @@ from pathlib import Path
 import face_vijnana_yolov3_tpu_torch
 
 PACKAGE = Path(face_vijnana_yolov3_tpu_torch.__file__).parent
+CHIP_SMOKE = PACKAGE.parent / "chip_smoke.py"
 
 _CHILD = r"""
 import sys
@@ -21,17 +26,23 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 import face_vijnana_yolov3_tpu_torch
-from face_vijnana_yolov3_tpu_torch import kernels
+from face_vijnana_yolov3_tpu_torch import kernels, profile_detect
+from face_vijnana_yolov3_tpu_torch.api.config import FdConf
 from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipeline, main
 from face_vijnana_yolov3_tpu_torch.core import checkpoints, weights
-from face_vijnana_yolov3_tpu.api.config import FdConf
+from face_vijnana_yolov3_tpu_torch.utils import drawing, io
 
 conf = FdConf(weights_path="does_not_exist.weights")
 conf.nn_arch.image_size = 64
-fd = FaceDetectorPipeline(conf, device="cpu")
-cands, counts = fd.detect_batch(np.zeros((1, 64, 64, 3), np.float32))
-assert cands.shape == (1, 4, 6) and counts.shape == (1,), (cands.shape, counts.shape)
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+conf.int8_pallas_blocks = True
+x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+for precision in ("float32", "int8"):
+    fd = FaceDetectorPipeline(conf, precision=precision, device="cpu")
+    cands, counts = fd.detect_batch(x)
+    assert cands.shape == (2, 4, 6) and counts.shape == (2,), (cands.shape, counts.shape)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "face_vijnana_yolov3_tpu"))
+assert not leaked, leaked
 print("OK")
 """
 
@@ -45,21 +56,19 @@ def test_port_runs_without_importing_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
 def test_no_jax_import_in_package_sources():
-    for path in PACKAGE.rglob("*.py"):
-        for node in ast.walk(ast.parse(path.read_text())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                assert name.split(".")[0] != "jax", f"{path}: imports {name}"
-                # the JAX package is only reused through its jax-free modules
-                if name.startswith("face_vijnana_yolov3_tpu."):
-                    assert name in (
-                        "face_vijnana_yolov3_tpu.api.config",
-                        "face_vijnana_yolov3_tpu.utils.io",
-                        "face_vijnana_yolov3_tpu.utils.drawing",
-                    ), f"{path}: imports {name}"
+    sources = [*PACKAGE.rglob("*.py"), CHIP_SMOKE]
+    assert CHIP_SMOKE.exists()
+    for path in sources:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top != "jax", f"{path}: imports {name}"
+            assert top != "face_vijnana_yolov3_tpu", f"{path}: imports {name}"
