@@ -7,17 +7,22 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 which raises on failure (exit code != 0):
 
 1. device   — the card's name, power limit and TF32 flags;
-2. build    — nvcc builds the port's three CUDA kernels from csrc/;
+2. build    — nvcc builds the port's four CUDA kernels from csrc/;
 3. kernels  — each kernel vs its plain PyTorch version on the card,
               `torch.equal` required: the NMS sweep at B=128, N=169;
               conv_int8 at every conv_int8 shape of the int8 trunk at 416²
               (b=8, with and without skip, k 1 and 3, stride 1 and 2) plus
               rectangular inputs; block_int8 at the three residual stages
-              (b=32) plus a rectangular input. Then each is timed with CUDA
-              events at the main path's shapes (one 416² trunk at b=32 for
-              the int8 kernels) beside its plain version, its bound and one
-              `torch._int_mm` per GEMM as the library yardstick (product
-              only: the im2col the library would need is not counted);
+              (b=32) plus a rectangular input. The bf16 fused front
+              (fused_front) at 416² b=8 and 100² (ragged tiles) within one
+              bf16 step on at most 0.1 % of the elements (FRONT_*). Then
+              each is timed with CUDA events at the main path's shapes (one
+              416² trunk at b=32 for the int8 kernels, the front at b=32)
+              beside its plain version, its bound and a library yardstick:
+              one `torch._int_mm` per int8 GEMM (product only: the im2col
+              the library would need is not counted), the two cuDNN bf16
+              convs for the front (products only), and the port's stock
+              depth-0 bf16 front;
 4. slice    — f32: the CLI (`api.face_detection.main`, test mode) serves 8
               seeded JPEGs at 416², batch 4, with seeded random weights
               from a .pt checkpoint; then the device letterbox, the card's
@@ -30,9 +35,19 @@ which raises on failure (exit code != 0):
               the one with them off, and the card's trunk equals the CPU's
               plain one at 416² (an integer program: any difference is a
               kernel fault); the bf16 heads within a stated tolerance;
-6. timing   — int8 detect_batch img/s at b=32 and b=128 (full int8, blocks
+6. bf16     — FaceDetectorPipeline(precision="bfloat16", bf16_f32_front
+              "auto") serves the same JPEGs in test mode (batches of 4: the
+              guard probe defers), then the probe runs on 32 letterboxed
+              images; then the 416² b=32 detection program through
+              apply_graph_folded_front (kernel C, the bf16 trunk from op 2,
+              the bf16 head, face_postprocess_batch), whose head must lie
+              within 2e-2 of max |head| of the pipeline's depth-0 head;
+              fused_front and nms_sweep must launch;
+7. timing   — int8 detect_batch img/s at b=32 and b=128 (full int8, blocks
               on), the trunk alone with the blocks on and off, calibration
-              seconds, and f32 detect_batch at b=8 and b=32.
+              seconds, f32 detect_batch at b=8 and b=32, bf16 detect_batch
+              at b=32 and b=128 at guard depths 2 and 0, and the bf16
+              forward at b=32 with the stock front and with the fused one.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -58,9 +73,13 @@ DEVICE = "cuda"
 IMAGE_SIZE = 416
 F32_TIMING_BATCHES = (8, 32)
 INT8_TIMING_BATCHES = (32, 128)
+BF16_TIMING_BATCHES = (32, 128)
+BF16_DEPTHS = (2, 0)
 KERNEL_B, KERNEL_N = 128, 169
 CONV_CHECK_B = 8  # conv_int8 vs plain
 TRUNK_B = 32  # int8 kernel timings: one trunk at this batch
+FRONT_CHECKS = ((8, 416), (3, 100))  # fused_front vs plain: (batch, size)
+FRONT_B = 32  # fused_front timing and the bf16 detection program
 # Card vs CPU head: cuDNN and the CPU sum each conv in another order, and
 # cuDNN may pick Winograd/FFT algorithms for f32, whose rounding differs more.
 HEAD_TOL = 1e-4
@@ -71,12 +90,24 @@ INT8_HEAD_TOL = 2e-2
 # Full int8 (bf16 head) vs the folded f32 program, head NRMSE (the default
 # score of models/quant.quantize_autotail) on seeded random weights at 416².
 INT8_NRMSE_TOL = 0.1
+# fused_front vs its plain twin: both add the bias to an f32 sum taken in
+# another order, so a sum next to a bf16 rounding boundary may round the
+# other way, in conv_0's output (then carried through conv_1) or in conv_1's:
+# max |diff| within one bf16 step at the top of the range (2^-7 of max
+# |ref|), on at most 0.1 % of the elements (tests/test_torch_front_fused.py).
+FRONT_STEP = 2.0 ** -7
+FRONT_MAX_FRACTION = 1e-3
+# The fused-front detection head vs the stock depth-0 bf16 head: the two
+# fronts round at other places (bias before or after the bf16 rounding), and
+# 50 bf16 convs follow; test_torch_folded.py's bf16 bound.
+BF16_HEAD_TOL = 2e-2
 # Matmul letterbox vs cv2 on the same f32 pixels: f32 rounding only. (cv2 on
 # the host path's f64 pixels differs by up to 7e-5 at 1280 wide, in the JAX
 # package too: cv2 takes another coefficient path for 64F images.)
 LETTERBOX_TOL = 1e-5
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
+PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
 PEAK_F32 = 67e12  # f32 operations / s outside the tensor cores
 HBM = 3.35e12  # bytes / s
 # NMS: f32 operations per (live row i, later row j) IoU test in
@@ -387,6 +418,166 @@ def time_int8_kernels(ops, card, rng) -> dict:
     return rec
 
 
+def front_operands(b, size, rng):
+    """Letterbox-like f32 input and folded conv_0/conv_1 params on the card,
+    at He-like scales (the trunk's first two convs after folding)."""
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(DEVICE)  # noqa: E731
+    x = t(rng.uniform(0, 1, (b, size, size, 3)))
+    folded = {
+        "conv_0": {"kernel": t(rng.normal(0, np.sqrt(2 / 27), (32, 3, 3, 3))),
+                   "bias": t(rng.normal(0, 0.1, 32))},
+        "conv_1": {"kernel": t(rng.normal(0, np.sqrt(2 / 288), (64, 32, 3, 3))),
+                   "bias": t(rng.normal(0, 0.1, 64))},
+    }
+    return x, folded
+
+
+def front_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max |diff|, max |ref|, fraction of elements that differ)."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float(want.float().abs().max()), float((d > 0).float().mean())
+
+
+def check_front(rng) -> float:
+    """fused_front vs fused_front_plain on the card → max |diff|."""
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import (
+        fused_front,
+        fused_front_plain,
+    )
+
+    err = 0.0
+    for b, size in FRONT_CHECKS:
+        x, folded = front_operands(b, size, rng)
+        got = fused_front(x, folded)
+        want = fused_front_plain(x, folded)
+        torch.cuda.synchronize()
+        d_max, ref_max, frac = front_diff(got, want)
+        err = max(err, d_max)
+        print(f"[kernels] fused_front b={b} {size}²: max |diff| {d_max:.4g}, max |ref| "
+              f"{ref_max:.4g} (tol {FRONT_STEP * ref_max:.4g}), {frac:.3g} of the "
+              f"elements differ (tol {FRONT_MAX_FRACTION}); {tuple(got.shape)} "
+              f"{got.dtype}")
+        if not (got.shape == want.shape and got.dtype == torch.bfloat16
+                and torch.isfinite(got.float()).all() and d_max <= FRONT_STEP * ref_max
+                and frac <= FRONT_MAX_FRACTION):
+            raise AssertionError(f"fused_front disagrees with its plain version at "
+                                 f"b={b} {size}²")
+    return err
+
+
+def time_front(ops, card, rng) -> dict:
+    """ms of fused_front at FRONT_B beside its plain twin, its bound, the two
+    cuDNN bf16 convs and the port's stock depth-0 bf16 front."""
+    import torch.nn.functional as F
+
+    from face_vijnana_yolov3_tpu_torch.models import darknet
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import (
+        fused_front,
+        fused_front_plain,
+    )
+
+    b, s = FRONT_B, IMAGE_SIZE
+    x, folded = front_operands(b, s, rng)
+    k_ms = cuda_ms(lambda: fused_front(x, folded), 20)
+    p_ms = cuda_ms(lambda: fused_front_plain(x, folded), 5, warmup=1)
+    stock_ops = ops[:2] + [("output", "t")]
+    stock_ms = cuda_ms(lambda: darknet.apply_graph_folded(
+        folded, x, stock_ops, compute_dtype=torch.bfloat16), 10)
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    k0 = folded["conv_0"]["kernel"].to(torch.bfloat16)
+    k1 = folded["conv_1"]["kernel"].to(torch.bfloat16)
+    y = F.conv2d(xb, k0, padding=1)
+
+    def cudnn_pair():
+        F.conv2d(xb, k0, padding=1)
+        F.conv2d(y, k1, stride=2, padding=1)
+
+    lib_ms = cuda_ms(cudnn_pair, 20)
+    g = s // 2
+    nbytes = b * s * s * 3 * 4 + b * g * g * 64 * 2 + 2 * (32 * 27 + 64 * 288) + 4 * 96
+    n_ops = 2 * b * (s * s * 27 * 32 + g * g * 288 * 64)
+    b_ms, b_by = bound(nbytes, n_ops, PEAK_BF16)
+    rec = dict(ms=float(np.median(k_ms)), plain_ms=float(np.median(p_ms)),
+               library_ms=float(np.median(lib_ms)), bound_ms=b_ms, bound_by=b_by)
+    print(f"[kernels] fused_front b={b} {s}² on {card}: kernel {quartiles(k_ms)}, "
+          f"{n_ops / (rec['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+          f"{nbytes / (rec['ms'] * 1e-3) / 1e9:.0f} GB/s; plain {quartiles(p_ms)}; "
+          f"two cuDNN bf16 convs (products only) {quartiles(lib_ms)}; the port's stock "
+          f"depth-0 bf16 front {quartiles(stock_ms)}; bound {b_ms:.4f} ms by {b_by} "
+          f"({nbytes / 1e6:.1f} MB, {n_ops / 1e9:.1f} GFLOP)")
+    del x, folded, xb, y
+    return rec
+
+
+def bf16_slice(tmp, files, fdm, card, dev):
+    """The bf16 serving path: the pipeline in test mode with the guard on
+    "auto", the probe on 32 images, then the 416² b=32 detection program
+    through apply_graph_folded_front. Returns (launch counts of this path,
+    the pipeline for timing)."""
+    from face_vijnana_yolov3_tpu_torch.api.config import load_conf
+    from face_vijnana_yolov3_tpu_torch.models.detector import head_conv
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import (
+        apply_graph_folded_front,
+        fused_front,
+    )
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+    from face_vijnana_yolov3_tpu_torch.ops.postprocess import face_postprocess_batch
+
+    path = os.path.join(tmp, "conf_bf16.json")
+    csv = os.path.join(tmp, "bf16.csv")
+    with open(path, "w") as f:
+        json.dump({"fd_conf": {
+            "mode": "test", "test_path": tmp, "output_file_path": csv,
+            "model_loading": True, "model_path": os.path.join(tmp, "fd_int8_tail0.pt"),
+            "bf16_f32_front": "auto",
+            "hps": {"face_conf_th": 0.05, "batch_size": 4},
+            "nn_arch": {"image_size": IMAGE_SIZE},
+        }}, f)
+    conf = load_conf(path).fd_conf
+    lb = np.asarray([letterbox_host(imread(f) / 255, IMAGE_SIZE, "cubic")[0]
+                     for f in sorted(files)], np.float32)
+    x32 = torch.from_numpy(np.concatenate([lb] * (FRONT_B // len(lb)))).to(dev)
+
+    fused_front.launches = nms_sweep.launches = 0
+    fd = fdm.FaceDetectorPipeline(conf, precision="bfloat16")
+    fd.test()
+    deferred = not hasattr(fd, "bf16_front_chosen")
+    summary = check_csv(csv, len(files), "bf16")
+    print(f"[bf16] test mode, bf16_f32_front auto, batches of 4: {summary}; the guard "
+          f"probe deferred: {deferred} (fewer than 16 images), served depth "
+          f"{fd._bf16_front_depth()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depth, err = fd.autoselect_bf16_front(x32)
+    torch.cuda.synchronize()
+    print(f"[bf16] autoselect_bf16_front on {FRONT_B} images on {card}: depth {depth}, "
+          f"1-boxF1 {err}, pinned {hasattr(fd, 'bf16_front_chosen')}, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    folded = fd._folded_params()
+    with torch.inference_mode():
+        trunk = apply_graph_folded_front(folded, x32, fd.model.ops)["trunk"]
+        head = head_conv(trunk.to(torch.bfloat16), folded["head"], torch.bfloat16)
+        cands, counts = face_postprocess_batch(head, fd._pp_cfg)
+        ref = fd._bf16_head(x32, 0)
+    torch.cuda.synchronize()
+    launches = {"fused_front": fused_front.launches, "nms_sweep": nms_sweep.launches}
+    h_err = float((head - ref).abs().max())
+    h_max = float(ref.abs().max())
+    print(f"[bf16] apply_graph_folded_front detection program, b={FRONT_B} "
+          f"{IMAGE_SIZE}²: head {tuple(head.shape)} vs the pipeline's depth-0 head "
+          f"max |diff| {h_err:.4g}, max |head| {h_max:.4g} (tol {BF16_HEAD_TOL} of max "
+          f"|head|); counts {counts.tolist()[:8]}...; launches {launches}")
+    if not (torch.isfinite(head).all() and h_err <= BF16_HEAD_TOL * h_max
+            and cands.shape[::2] == (FRONT_B, 6) and torch.isfinite(cands).all()):
+        raise AssertionError("the fused-front detection program disagrees with the "
+                             "stock bf16 one")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the bf16 run skipped a kernel: {launches}")
+    return launches, fd
+
+
 def int8_slice(tmp, files, fdm, card, dev):
     """The int8 serving path through its entry point, then the bit-exact
     checks at full int8. Returns (launch counts of the main path, the
@@ -517,8 +708,9 @@ def main() -> int:
         save_checkpoint,
     )
     from face_vijnana_yolov3_tpu_torch.models import darknet, quant
-    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel, head_conv
     from face_vijnana_yolov3_tpu_torch.ops.decode import decode_face_head
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import apply_graph_folded_front
     from face_vijnana_yolov3_tpu_torch.ops.letterbox import (
         letterbox_geometry,
         letterbox_host,
@@ -550,10 +742,10 @@ def main() -> int:
     # 2. build
     path, build_s = kernels.build()
     lib = kernels.load()
-    entry_points = [n for n in ("fvy_nms_sweep", "fvy_conv_int8", "fvy_block_int8")
-                    if hasattr(lib, n)]
+    entry_points = [n for n in ("fvy_nms_sweep", "fvy_conv_int8", "fvy_block_int8",
+                                "fvy_front_fused") if hasattr(lib, n)]
     print(f"[build] {path.name} built in {build_s:.2f} s; entry points {entry_points}")
-    if len(entry_points) != 3:
+    if len(entry_points) != 4:
         raise AssertionError("the library lacks a kernel")
 
     # 3. kernels vs plain versions, then their times
@@ -584,6 +776,8 @@ def main() -> int:
     ops = darknet.trunk_graph()
     int8_err = check_int8_kernels(ops, rng)
     int8_rec = time_int8_kernels(ops, card, rng)
+    front_err = check_front(rng)
+    front_rec = time_front(ops, card, rng)
     torch.cuda.empty_cache()
     print(f"[kernels] done at {time.perf_counter() - t_start:.0f} s")
 
@@ -683,38 +877,64 @@ def main() -> int:
         launches, fd8, calib_s = int8_slice(tmp, files, fdm, card, dev)
         print(f"[int8] done at {time.perf_counter() - t_start:.0f} s")
 
-    # 6. timing: detect_batch img/s over distinct inputs
+        # 6. bf16: the slice's main path, then the fused-front program
+        bf16_launches, fdb = bf16_slice(tmp, files, fdm, card, dev)
+        print(f"[bf16] done at {time.perf_counter() - t_start:.0f} s")
+        torch.cuda.empty_cache()
+
+    # 7. timing: detect_batch img/s over distinct inputs
     rates = {}
-    for label, pipe, batches in (("int8", fd8, INT8_TIMING_BATCHES),
-                                 ("f32", fd, F32_TIMING_BATCHES)):
-        for b in batches:
-            inputs = [rng.uniform(size=(b, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
-                      for _ in range(3)]
-            next_input = itertools.cycle(inputs).__next__
-            ms = cuda_ms(lambda: pipe.detect_batch(next_input()), 8, warmup=2)
-            rates[(label, b)] = b / (np.median(ms) / 1e3)
-            with torch.inference_mode():
-                xd = [torch.from_numpy(a).to(dev) for a in inputs[:2]]
-                next_x = itertools.cycle(xd).__next__
-                if label == "int8":
-                    fwd = {blocks: cuda_ms(lambda blocks=blocks: quant.apply_graph_quant(
-                        pipe._qparams, next_x(), pipe.model.ops,
-                        fused_blocks=blocks), 8, warmup=2) for blocks in (True, False)}
-                    heads = [pipe.model.apply_quant(pipe._qparams, t, fused_blocks=True)
-                             for t in xd]
-                    fwd_txt = (f"int8 trunk, blocks on {quartiles(fwd[True])}; blocks "
-                               f"off {quartiles(fwd[False])}")
-                else:
-                    fwd_ms = cuda_ms(lambda: pipe.model(next_x()), 8, warmup=2)
-                    heads = [pipe.model(t) for t in xd]
-                    fwd_txt = f"trunk+head {quartiles(fwd_ms)}"
-                next_head = itertools.cycle(heads).__next__
-                pp_ms = cuda_ms(lambda: face_postprocess_batch(next_head(), pipe._pp_cfg), 8)
-            print(f"[timing] {label} detect_batch b={b} on {card}: "
-                  f"{rates[(label, b)]:.1f} img/s; detect_batch {quartiles(ms)}; "
-                  f"{fwd_txt}; postprocess {quartiles(pp_ms)}")
-            del inputs, xd, heads
-            torch.cuda.empty_cache()
+    runs = [("int8", fd8, b, None) for b in INT8_TIMING_BATCHES]
+    runs += [("f32", fd, b, None) for b in F32_TIMING_BATCHES]
+    runs += [("bf16", fdb, b, d) for d in BF16_DEPTHS for b in BF16_TIMING_BATCHES]
+    for label, pipe, b, depth in runs:
+        if depth is not None:
+            pipe.conf.bf16_f32_front = depth
+            label = f"bf16 guard depth {depth}"
+        inputs = [rng.uniform(size=(b, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+                  for _ in range(3)]
+        next_input = itertools.cycle(inputs).__next__
+        ms = cuda_ms(lambda: pipe.detect_batch(next_input()), 8, warmup=2)
+        rates[(label, b)] = b / (np.median(ms) / 1e3)
+        with torch.inference_mode():
+            xd = [torch.from_numpy(a).to(dev) for a in inputs[:2]]
+            next_x = itertools.cycle(xd).__next__
+            if label == "int8":
+                fwd = {blocks: cuda_ms(lambda blocks=blocks: quant.apply_graph_quant(
+                    pipe._qparams, next_x(), pipe.model.ops,
+                    fused_blocks=blocks), 8, warmup=2) for blocks in (True, False)}
+                heads = [pipe.model.apply_quant(pipe._qparams, t, fused_blocks=True)
+                         for t in xd]
+                fwd_txt = (f"int8 trunk, blocks on {quartiles(fwd[True])}; blocks "
+                           f"off {quartiles(fwd[False])}")
+            elif depth is not None:
+                fwd_ms = cuda_ms(lambda: pipe._bf16_head(next_x(), depth), 8, warmup=2)
+                heads = [pipe._bf16_head(t, depth) for t in xd]
+                fwd_txt = f"trunk+head {quartiles(fwd_ms)}"
+            else:
+                fwd_ms = cuda_ms(lambda: pipe.model(next_x()), 8, warmup=2)
+                heads = [pipe.model(t) for t in xd]
+                fwd_txt = f"trunk+head {quartiles(fwd_ms)}"
+            next_head = itertools.cycle(heads).__next__
+            pp_ms = cuda_ms(lambda: face_postprocess_batch(next_head(), pipe._pp_cfg), 8)
+        print(f"[timing] {label} detect_batch b={b} on {card}: "
+              f"{rates[(label, b)]:.1f} img/s; detect_batch {quartiles(ms)}; "
+              f"{fwd_txt}; postprocess {quartiles(pp_ms)}")
+        del inputs, xd, heads
+        torch.cuda.empty_cache()
+    with torch.inference_mode():
+        xd = [torch.from_numpy(rng.uniform(size=(FRONT_B, IMAGE_SIZE, IMAGE_SIZE, 3))
+                               .astype(np.float32)).to(dev) for _ in range(2)]
+        next_x = itertools.cycle(xd).__next__
+        folded = fdb._folded_params()
+        stock_ms = cuda_ms(lambda: fdb._bf16_head(next_x(), 0), 8, warmup=2)
+        fused_ms = cuda_ms(lambda: head_conv(apply_graph_folded_front(
+            folded, next_x(), fdb.model.ops)["trunk"].to(torch.bfloat16),
+            folded["head"], torch.bfloat16), 8, warmup=2)
+    print(f"[timing] bf16 trunk+head b={FRONT_B} on {card}: stock front (guard depth "
+          f"0) {quartiles(stock_ms)}; fused front (apply_graph_folded_front) "
+          f"{quartiles(fused_ms)}")
+    del xd
     print(f"[timing] int8 calibration (32 images, one candidate) {calib_s:.2f} s; "
           f"total run {time.perf_counter() - t_start:.0f} s")
 
@@ -731,17 +951,21 @@ def main() -> int:
         "bound_by": nms_bound_by,
         "library_ms": None,
     }]
-    for name, src, replaces in (
+    for name, src, replaces, rec, n, err in (
             ("conv_int8", "face_vijnana_yolov3_tpu_torch/csrc/conv_int8.cu",
-             "face_vijnana_yolov3_tpu/models/quant.py:666"),
+             "face_vijnana_yolov3_tpu/models/quant.py:666", int8_rec["conv_int8"],
+             launches["conv_int8"], int8_err["conv_int8"]),
             ("block_int8", "face_vijnana_yolov3_tpu_torch/csrc/block_int8.cu",
-             "face_vijnana_yolov3_tpu/ops/pallas_block.py:88")):
-        r = int8_rec[name]
+             "face_vijnana_yolov3_tpu/ops/pallas_block.py:88", int8_rec["block_int8"],
+             launches["block_int8"], int8_err["block_int8"]),
+            ("fused_front", "face_vijnana_yolov3_tpu_torch/csrc/front_fused.cu",
+             "face_vijnana_yolov3_tpu/ops/pallas_front.py:49", front_rec,
+             bf16_launches["fused_front"], front_err)):
         kernel_lines.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": int8_err[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launches": n, "max_abs_err": err,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
     print(json.dumps({"kernels": kernel_lines}))
     print(card)

@@ -1,6 +1,6 @@
 """Face detection serving entry point: evaluate / test, config-JSON driven.
 
-Port of the f32 and int8 serving paths of
+Port of the f32, bf16 and int8 serving paths of
 face_vijnana_yolov3_tpu/api/face_detection.py (FaceDetectorPipeline,
 `main`): the same `solution_fd.csv` rows `file,x,y,w,h,score` (at most 60
 per image), annotated JPEGs in `<test_path>/results/` and `ratios.csv` in
@@ -18,12 +18,18 @@ per-channel scales, the box-F1 self-check over bf16 tails, or the tail
 pinned in the checkpoint's trainmeta sidecar) and then serves the int8
 trunk (csrc/conv_int8.cu; with `int8_pallas_blocks`, the residual blocks of
 stages 3-5 through csrc/block_int8.cu) with a bf16 head.
+`precision="bfloat16"` serves the folded bf16 trunk and head with the first
+`conf.bf16_f32_front` graph segments in f32 (0, 1, 2, or "auto": the
+shallowest depth whose detections match the folded f32 head's, probed on
+the first batch by `autoselect_bf16_front`). Like the JAX pipeline, it
+serves the stock front; the fused front kernel (ops/front_fused.py) is
+reached through `apply_graph_folded_front`.
 
-Not carried yet (ROADMAP.md queue 1): bf16 serving, the msegrid
-calibrator, PTQ bias correction and distillation QAT, training, the legacy
-`--mode` argparse CLI, Keras-h5 and Orbax weights, the native JPEG loader
-and its scaled decode. `bf16_front_mode="int8"` is refused: it is not
-carried (measured harmful in the JAX package). Deliberate divergence: eager PyTorch has no
+Not carried yet (ROADMAP.md queue 1): the msegrid calibrator, PTQ bias
+correction and distillation QAT, training, the legacy `--mode` argparse
+CLI, Keras-h5 and Orbax weights, the native JPEG loader and its scaled
+decode. `bf16_front_mode="int8"` is refused: it is not carried (measured
+harmful in the JAX package). Deliberate divergence: eager PyTorch has no
 per-shape compile to amortise, so `detect_batch_fused` does not pad staged
 buffers to 128-multiples or chunks to a fixed batch as the JAX jit does;
 results are unchanged by that padding.
@@ -103,10 +109,11 @@ class FaceDetectorPipeline:
             if isinstance(pct, str) and pct != "auto":
                 raise NotImplementedError(f"int8_calib_percentile={pct!r}: the "
                                           f"msegrid calibrator is {quant.NOT_PORTED}")
-        elif precision != "float32":
+        elif precision not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"precision={precision!r}: the port serves float32 and int8; "
-                "bf16 is ROADMAP.md queue 1 item 1")
+                f"precision={precision!r}: the port serves float32, bfloat16 "
+                "and int8, the JAX package's serving precisions (ROADMAP.md "
+                "queue 1)")
         self.device = resolve_device(device)
         # The f32 contract (JAX Precision.HIGHEST): cuDNN convs default to
         # TF32 on the card, which keeps about three decimal digits.
@@ -160,6 +167,7 @@ class FaceDetectorPipeline:
         )
         self._mat_cache: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
         self._qparams: dict | None = None
+        self._folded: dict | None = None  # bf16: folded once, on first use
 
     # -------------------------------------------------------------- int8
 
@@ -207,6 +215,85 @@ class FaceDetectorPipeline:
             self.device)
         self.int8_tail_chosen = tail_cfg
 
+    # -------------------------------------------------------------- bf16
+
+    def _folded_params(self) -> dict:
+        if self._folded is None:
+            self._folded = self.model.fold()
+        return self._folded
+
+    def _bf16_front_depth(self) -> int:
+        """Resolve conf.bf16_f32_front: an int is used as-is; "auto" reads
+        the depth autoselect_bf16_front measured (2, the conservative
+        default, until the probe has run)."""
+        front = getattr(self.conf, "bf16_f32_front", 2)
+        if front == "auto":
+            return int(getattr(self, "bf16_front_chosen", 2))
+        return int(front)
+
+    def _bf16_head(self, images: torch.Tensor, depth: int) -> torch.Tensor:
+        """The bf16 serving program's head at f32-front guard `depth`: what
+        `_detect` serves and what `autoselect_bf16_front` scores."""
+        return self.model.apply_folded(self._folded_params(), images,
+                                       compute_dtype=torch.bfloat16,
+                                       f32_front_blocks=depth)
+
+    @torch.inference_mode()
+    def autoselect_bf16_front(self, images, threshold: float = 0.05):
+        """Pick the shallowest f32-front guard depth in {0, 1, 2} whose bf16
+        head reproduces the f32 detections on a representative batch
+        (api/face_detection.py:308-392 of the JAX package).
+
+        Depths escalate 0 → 1 → 2 until the box-F1 error
+        (quant.detection_box_f1_scorer) of the bf16 head against the folded
+        f32 head on the first 32 of `images` (letterboxed, (N, S, S, 3))
+        passes `threshold`; depth 2 is the fallback when none does. Returns
+        (depth, err) and pins the choice (`bf16_front_chosen`) for
+        conf.bf16_f32_front == "auto".
+
+        The probe defers (depth 2 served, nothing pinned, a later batch
+        probes again) when the batch has fewer than 16 images, or when the
+        scorer is inconclusive (the f32 reference detects nothing, so its
+        NRMSE fallback would pass vacuously); after 3 inconclusive probes
+        depth 2 is pinned. Each candidate runs `_bf16_head`, the very
+        function `_detect` serves (the JAX lesson: probe the exact serving
+        program).
+        """
+        if images.shape[0] < 16:
+            return 2, None
+        x = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor)
+                            else images, dtype=torch.float32,
+                            device=self.device)[:32]
+        ref = self.model.apply_folded(self._folded_params(), x,
+                                      compute_dtype=torch.float32).cpu().numpy()
+        scorer = quant.detection_box_f1_scorer(self._pp_cfg, self.device)
+        depth, err = 2, None
+        inconclusive = False
+        for cand in (0, 1, 2):
+            err = scorer(ref, self._bf16_head(x, cand).cpu().numpy())
+            inconclusive = bool(getattr(scorer, "inconclusive", False))
+            if inconclusive:
+                break
+            if err <= threshold:
+                depth = cand
+                break
+        if inconclusive:
+            self._bf16_probe_attempts = getattr(self, "_bf16_probe_attempts", 0) + 1
+            if self._bf16_probe_attempts < 3:
+                return 2, None
+            depth = 2
+        self.bf16_front_chosen = depth
+        self.bf16_front_err = err
+        if depth != 2:
+            print(f"[autoselect_bf16_front] guard narrowed to depth {depth} "
+                  f"(1-boxF1 {err:.4f} on {x.shape[0]} images)")
+        return depth, err
+
+    def _bf16_front_auto_pending(self) -> bool:
+        return (self.precision == "bfloat16"
+                and getattr(self.conf, "bf16_f32_front", 2) == "auto"
+                and not hasattr(self, "bf16_front_chosen"))
+
     # -------------------------------------------------------------- detect
 
     @torch.inference_mode()
@@ -219,6 +306,8 @@ class FaceDetectorPipeline:
             head = self.model.apply_quant(
                 self._qparams, images,
                 fused_blocks=bool(getattr(self.conf, "int8_pallas_blocks", False)))
+        elif self.precision == "bfloat16":
+            head = self._bf16_head(images, self._bf16_front_depth())
         else:
             head = self.model(images)
         return face_postprocess_batch(head, self._pp_cfg)
@@ -230,6 +319,8 @@ class FaceDetectorPipeline:
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         if self.precision == "int8" and self._qparams is None:
             self.calibrate_int8(x)
+        if self._bf16_front_auto_pending():
+            self.autoselect_bf16_front(x)
         cands, counts = self._detect(x)
         return cands.cpu().numpy(), counts.cpu().numpy()
 
@@ -279,13 +370,18 @@ class FaceDetectorPipeline:
         s = torch.as_tensor(staged, device=self.device)
         s = (s.to(torch.float32) * (1.0 / 255.0) if s.dtype == torch.uint8
              else s.to(torch.float32))
-        if self.precision == "int8" and self._qparams is None:
+        need_calib = self.precision == "int8" and self._qparams is None
+        need_front = self._bf16_front_auto_pending()
+        if need_calib or need_front:
             # Up to 32 images: the box-F1 self-check needs at least 16 to
             # resolve tail improvements (quantize_autotail).
             k = min(32, n)
             with torch.inference_mode():
-                self.calibrate_int8(letterbox_device_matmul(
-                    s[:k], row_ms[:k], col_ms[:k]))
+                lb = letterbox_device_matmul(s[:k], row_ms[:k], col_ms[:k])
+            if need_calib:
+                self.calibrate_int8(lb)
+            if need_front:
+                self.autoselect_bf16_front(lb)
         with torch.inference_mode():
             lb = letterbox_device_matmul(s, row_ms, col_ms)
         cands, counts = self._detect(lb)

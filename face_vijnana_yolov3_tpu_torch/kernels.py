@@ -110,4 +110,7 @@ def load() -> ctypes.CDLL:
     # batch, h, w, c, ch, rows, n_split, stream
     lib.fvy_block_int8.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.fvy_block_int8.restype = i
+    # x, w0, b0, w1, b1, out, batch, s, stream
+    lib.fvy_front_fused.argtypes = [p] * 6 + [i] * 2 + [p]
+    lib.fvy_front_fused.restype = i
     return lib

@@ -237,7 +237,7 @@ def test_checkpoint_sidecar_and_refusals(slice_run, tmp_path):
 def test_unported_precisions_and_modes_raise(tmp_path):
     conf = _conf(tmp_path, tmp_path / "x.csv")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_fd.FaceDetectorPipeline(conf, precision="bfloat16", device="cpu")
+        port_fd.FaceDetectorPipeline(conf, precision="float16", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_fd.main(["--mode=test"])
 

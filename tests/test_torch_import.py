@@ -2,8 +2,9 @@
 
 conftest.py has already imported jax into this process, so the runtime check
 runs in a fresh interpreter: import the port, build a small detector and run
-f32 and int8 `detect_batch` on the CPU (the int8 one calibrates and runs the
-int8 convs and the fused residual blocks), then assert that neither `jax`
+f32, bf16 and int8 `detect_batch` on the CPU (the int8 one calibrates and runs
+the int8 convs and the fused residual blocks) and the fused-front trunk
+(ops/front_fused.py), then assert that neither `jax`
 nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
 every source of the package and chip_smoke.py: no import of either, and no
 allow-list.
@@ -30,16 +31,19 @@ from face_vijnana_yolov3_tpu_torch import kernels, profile_detect
 from face_vijnana_yolov3_tpu_torch.api.config import FdConf
 from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipeline, main
 from face_vijnana_yolov3_tpu_torch.core import checkpoints, weights
+from face_vijnana_yolov3_tpu_torch.ops.front_fused import apply_graph_folded_front
 from face_vijnana_yolov3_tpu_torch.utils import drawing, io
 
 conf = FdConf(weights_path="does_not_exist.weights")
 conf.nn_arch.image_size = 64
 conf.int8_pallas_blocks = True
 x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
-for precision in ("float32", "int8"):
+for precision in ("float32", "bfloat16", "int8"):
     fd = FaceDetectorPipeline(conf, precision=precision, device="cpu")
     cands, counts = fd.detect_batch(x)
     assert cands.shape == (2, 4, 6) and counts.shape == (2,), (cands.shape, counts.shape)
+trunk = apply_graph_folded_front(fd.model.fold(), torch.from_numpy(x), fd.model.ops)
+assert trunk["trunk"].shape == (2, 2, 2, 1024), trunk["trunk"].shape
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "face_vijnana_yolov3_tpu"))
 assert not leaked, leaked
