@@ -11,13 +11,17 @@ which raises on failure (exit code != 0):
 3. kernels  — each kernel vs its plain PyTorch version on the card,
               `torch.equal` required: the NMS sweep at B=128, N=169;
               conv_int8 at every conv_int8 shape of the int8 trunk at 416²
-              (b=8, with and without skip, k 1 and 3, stride 1 and 2) plus
-              rectangular inputs; block_int8 at the three residual stages
-              (b=32) plus a rectangular input. The bf16 fused front
+              (b=8 and b=1, with and without skip, k 1 and 3, stride 1 and
+              2), at each (cin, cout, k, stride) on a ragged 11x19 input at
+              b=3, plus rectangular inputs; block_int8 at the three residual
+              stages (b=32 and b=1) and on 11x19 at b=3. The bf16 fused front
               (fused_front) at 416² b=8 and 100² (ragged tiles) within one
               bf16 step on at most 0.1 % of the elements (FRONT_*). Then
               each is timed with CUDA events at the main path's shapes (one
-              416² trunk at b=32 for the int8 kernels, the front at b=32)
+              416² trunk at b=32 for the int8 kernels, with the blocks on,
+              and conv_int8 again over the 52 convs with them off, each call
+              and its `_int_mm` yardstick as device time of a replayed CUDA
+              graph; the front at b=32)
               beside its plain version, its bound and a library yardstick:
               one `torch._int_mm` per int8 GEMM (product only: the im2col
               the library would need is not counted), the two cuDNN bf16
@@ -77,6 +81,7 @@ BF16_TIMING_BATCHES = (32, 128)
 BF16_DEPTHS = (2, 0)
 KERNEL_B, KERNEL_N = 128, 169
 CONV_CHECK_B = 8  # conv_int8 vs plain
+RAGGED_HW = (11, 19)  # ragged kernel checks at b=3
 TRUNK_B = 32  # int8 kernel timings: one trunk at this batch
 FRONT_CHECKS = ((8, 416), (3, 100))  # fused_front vs plain: (batch, size)
 FRONT_B = 32  # fused_front timing and the bf16 detection program
@@ -136,6 +141,25 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> list[float]:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return times
+
+
+def graph_ms(fn, reps: int = 20) -> list[float]:
+    """Device ms of one `fn()`: `reps` calls captured in one CUDA graph, the
+    graph replayed between CUDA events (5 times), over the count. Host launch
+    overhead, which per-call events include, stays out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = [t / reps for t in cuda_ms(graph.replay, 5, warmup=1)]
+    del graph
     return times
 
 
@@ -284,8 +308,8 @@ def block_cost(b, h, w, c, ch):
 
 
 def int_mm_ms(gemms, rng, reps: int = 10) -> float:
-    """Median ms of one torch._int_mm per (M, K, N) GEMM, summed: the
-    library's int8 product with the operands already laid out (A row-major,
+    """Median device ms (graph_ms) of one torch._int_mm per (M, K, N)
+    GEMM, summed: the library's int8 product with the operands already laid out (A row-major,
     B the weights (N, K) transposed); K is padded to a multiple of 8 where
     cuBLASLt needs it (conv_0's K = 27 → 32)."""
     total = 0.0
@@ -293,7 +317,7 @@ def int_mm_ms(gemms, rng, reps: int = 10) -> float:
         k = -(-k // 8) * 8
         a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(DEVICE)
         w = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(DEVICE)
-        total += float(np.median(cuda_ms(lambda: torch._int_mm(a, w.t()), reps)))
+        total += float(np.median(graph_ms(lambda: torch._int_mm(a, w.t()), reps)))
         del a, w
     return total
 
@@ -303,7 +327,9 @@ def int_mm_ms(gemms, rng, reps: int = 10) -> float:
 
 def check_int8_kernels(ops, rng) -> dict:
     """conv_int8 and block_int8 vs their plain versions on the card →
-    {name: max |kernel - plain|} in int8 steps."""
+    {name: max |kernel - plain|} in int8 steps. Every trunk shape at b=8
+    (conv) and b=32 (block), every one again at b=1, and ragged 11x19
+    inputs at b=3 (new tile edges on both axes)."""
     from face_vijnana_yolov3_tpu_torch.ops.block_int8 import (
         block_int8,
         block_int8_reference,
@@ -316,12 +342,16 @@ def check_int8_kernels(ops, rng) -> dict:
     err = {"conv_int8": 0, "block_int8": 0}
     on = trunk_int8_calls(ops, IMAGE_SIZE, True)
     off = trunk_int8_calls(ops, IMAGE_SIZE, False)
-    conv_shapes = sorted({c[1:] for c in on + off if c[0] == "conv"},
+    trunk_convs = sorted({c[1:] for c in on + off if c[0] == "conv"},
                          key=lambda s: (-s[0], s[2], s[3]))
-    conv_shapes += [(37, 53, 64, 128, 3, 2, False), (23, 41, 32, 64, 3, 1, True),
-                    (19, 11, 256, 128, 1, 1, False)]
-    for shape in conv_shapes:
-        a = int8_conv_operands(CONV_CHECK_B, *shape, rng)
+    ragged = sorted({(*RAGGED_HW, *c[2:]) for c in trunk_convs})
+    conv_cases = ([(CONV_CHECK_B, s) for s in trunk_convs] + [(1, s) for s in trunk_convs]
+                  + [(3, s) for s in ragged]
+                  + [(CONV_CHECK_B, s) for s in ((37, 53, 64, 128, 3, 2, False),
+                                                 (23, 41, 32, 64, 3, 1, True),
+                                                 (19, 11, 256, 128, 1, 1, False))])
+    for b, shape in conv_cases:
+        a = int8_conv_operands(b, *shape, rng)
         kw = {k: a[k] for k in ("skip_q", "skip_s") if k in a}
         got = conv_int8(a["x_q"], a["w_q"], a["w_scale"], a["bias"], a["inv_out"],
                         stride=shape[5], leaky=True, **kw)
@@ -330,13 +360,16 @@ def check_int8_kernels(ops, rng) -> dict:
         torch.cuda.synchronize()
         err["conv_int8"] = max(err["conv_int8"], int((got.int() - want.int()).abs().max()))
         live = float(((want != 0) & (want.abs() < 127)).float().mean())
-        print(f"[kernels] conv_int8 b={CONV_CHECK_B} (h, w, cin, cout, k, stride, "
-              f"skip)={shape}: torch.equal {torch.equal(got, want)}; {live:.1%} of "
-              f"outputs inside (0, 127)")
+        print(f"[kernels] conv_int8 b={b} (h, w, cin, cout, k, stride, skip)={shape}: "
+              f"torch.equal {torch.equal(got, want)}; {live:.1%} of outputs inside "
+              f"(0, 127)")
         if not torch.equal(got, want):
-            raise AssertionError(f"conv_int8 != plain version at {shape}")
+            raise AssertionError(f"conv_int8 != plain version at b={b} {shape}")
+        del a, got, want
     block_shapes = sorted({c[1:] for c in on if c[0] == "block"}, reverse=True)
-    for b, shape in [(TRUNK_B, s) for s in block_shapes] + [(3, (11, 19, 256, 128))]:
+    block_cases = ([(TRUNK_B, s) for s in block_shapes] + [(1, s) for s in block_shapes]
+                   + [(3, (*RAGGED_HW, *s[2:])) for s in block_shapes])
+    for b, shape in block_cases:
         args = int8_block_operands(b, *shape, rng)
         got = block_int8(*args)
         want = block_int8_reference(*args)
@@ -346,13 +379,16 @@ def check_int8_kernels(ops, rng) -> dict:
         print(f"[kernels] block_int8 b={b} (h, w, c, ch)={shape}: torch.equal "
               f"{torch.equal(got, want)}; {live:.1%} of outputs inside (0, 127)")
         if not torch.equal(got, want):
-            raise AssertionError(f"block_int8 != plain version at {shape}")
+            raise AssertionError(f"block_int8 != plain version at b={b} {shape}")
+        del args, got, want
     return err
 
 
 def time_int8_kernels(ops, card, rng) -> dict:
-    """ms, plain ms, bound and _int_mm yardstick of each int8 kernel over the
-    calls of one full-int8 trunk at TRUNK_B with the fused blocks on."""
+    """ms, plain ms, bound and _int_mm yardstick of each int8 kernel summed
+    over the calls of one full-int8 trunk at TRUNK_B: with the fused blocks
+    on (block_int8 and the 12 convs left to conv_int8), and conv_int8 again
+    over the 52 convs of the trunk with the blocks off (the default path)."""
     from face_vijnana_yolov3_tpu_torch.ops.block_int8 import (
         block_int8,
         block_int8_reference,
@@ -362,13 +398,13 @@ def time_int8_kernels(ops, card, rng) -> dict:
         conv_int8_reference,
     )
 
-    calls = collections.Counter(trunk_int8_calls(ops, IMAGE_SIZE, True))
-    rec = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      t_bytes=0.0, t_ops=0.0) for name in ("conv_int8", "block_int8")}
+    trunks = {"on": collections.Counter(trunk_int8_calls(ops, IMAGE_SIZE, True)),
+              "off": collections.Counter(trunk_int8_calls(ops, IMAGE_SIZE, False))}
     b = TRUNK_B
-    for call, count in sorted(calls.items(), key=lambda kv: kv[0][0]):
+    per_call = {}
+    for call in sorted(set(trunks["on"]) | set(trunks["off"]), key=lambda c: (c[0], -c[1])):
+        shape = call[1:]
         if call[0] == "conv":
-            shape = call[1:]
             h, w, cin, cout, k, stride, skip = shape
             a = int8_conv_operands(b, *shape, rng)
             kw = {key: a[key] for key in ("skip_q", "skip_s") if key in a}
@@ -381,40 +417,41 @@ def time_int8_kernels(ops, card, rng) -> dict:
             ho = (h + 2 * (k // 2) - k) // stride + 1
             wo = (w + 2 * (k // 2) - k) // stride + 1
             gemms = [(b * ho * wo, k * k * cin, cout)]
-            name = "conv_int8"
+            operands = a
         else:
-            shape = call[1:]
             h, w, c, ch = shape
             args = int8_block_operands(b, *shape, rng)
             fn = lambda: block_int8(*args)  # noqa: E731
             plain = lambda: block_int8_reference(*args)  # noqa: E731
             nbytes, n_ops = block_cost(b, *shape)
             gemms = [(b * h * w, c, ch), (b * h * w, 9 * ch, c)]
-            name = "block_int8"
-        k_ms = cuda_ms(fn, 20)
-        p_ms = cuda_ms(plain, 2, warmup=1)
+            operands = args
+        k_ms = float(np.median(graph_ms(fn)))
+        call_ms = float(np.median(cuda_ms(fn, 20)))
+        p_ms = float(np.median(cuda_ms(plain, 2, warmup=1)))
         lib_ms = int_mm_ms(gemms, rng)
-        b_ms, _ = bound(nbytes, n_ops, PEAK_INT8)
-        r = rec[name]
-        r["ms"] += count * float(np.median(k_ms))
-        r["plain_ms"] += count * float(np.median(p_ms))
-        r["library_ms"] += count * lib_ms
-        r["bound_ms"] += count * b_ms
-        r["t_bytes"] += count * nbytes / HBM * 1e3
-        r["t_ops"] += count * n_ops / PEAK_INT8 * 1e3
-        print(f"[kernels] {name} b={b} {shape} x{count} per trunk on {card}: kernel "
-              f"{quartiles(k_ms)}, {n_ops / (np.median(k_ms) * 1e-3) / 1e12:.1f} "
-              f"TOP/s; plain {quartiles(p_ms)}; _int_mm product {lib_ms:.4f} ms; "
-              f"bound {b_ms:.4f} ms")
-        if name == "conv_int8":
-            del a
-        else:
-            del args
-    for name, r in rec.items():
+        per_call[call] = dict(ms=k_ms, call_ms=call_ms, plain_ms=p_ms, library_ms=lib_ms,
+                              bound_ms=bound(nbytes, n_ops, PEAK_INT8)[0],
+                              t_bytes=nbytes / HBM * 1e3, t_ops=n_ops / PEAK_INT8 * 1e3)
+        print(f"[kernels] {call[0]} b={b} {shape} x{trunks['on'][call]} per trunk with "
+              f"the blocks on, x{trunks['off'][call]} off, on {card}: kernel {k_ms:.4f} "
+              f"ms on the device, {n_ops / (k_ms * 1e-3) / 1e12:.1f} TOP/s ({call_ms:.4f} "
+              f"ms a call between events, host launch included); plain {p_ms:.4f} ms; "
+              f"_int_mm product {lib_ms:.4f} ms; bound {per_call[call]['bound_ms']:.4f} ms")
+        del operands, fn, plain
+    rec = {}
+    for name, kind, trunk in (("conv_int8", "conv", "on"), ("block_int8", "block", "on"),
+                              ("conv_int8 blocks off", "conv", "off")):
+        r = {key: sum(n * per_call[c][key] for c, n in trunks[trunk].items() if c[0] == kind)
+             for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "t_bytes",
+                         "t_ops")}
         r["bound_by"] = "operations" if r.pop("t_ops") >= r.pop("t_bytes") else "bytes"
-        print(f"[kernels] {name} over one int8 trunk at b={b} on {card}: {r['ms']:.3f} "
-              f"ms (plain {r['plain_ms']:.1f} ms, _int_mm products "
-              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+        r["calls"] = sum(n for c, n in trunks[trunk].items() if c[0] == kind)
+        rec[name] = r
+        print(f"[kernels] {name}: {r['calls']} calls of one int8 trunk at b={b} on {card}: "
+              f"{r['ms']:.3f} ms on the device ({r['call_ms']:.3f} ms in calls between "
+              f"events), plain {r['plain_ms']:.1f} ms, _int_mm products "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return rec
 
 
@@ -951,6 +988,7 @@ def main() -> int:
         "bound_by": nms_bound_by,
         "library_ms": None,
     }]
+    off = int8_rec["conv_int8 blocks off"]
     for name, src, replaces, rec, n, err in (
             ("conv_int8", "face_vijnana_yolov3_tpu_torch/csrc/conv_int8.cu",
              "face_vijnana_yolov3_tpu/models/quant.py:666", int8_rec["conv_int8"],
@@ -967,6 +1005,11 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
+        if name == "conv_int8":  # the default path: the trunk with the blocks off
+            kernel_lines[-1].update(
+                ms_blocks_off=off["ms"], plain_ms_blocks_off=off["plain_ms"],
+                bound_ms_blocks_off=off["bound_ms"],
+                library_ms_blocks_off=off["library_ms"])
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

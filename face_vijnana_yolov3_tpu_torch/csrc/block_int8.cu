@@ -1,4 +1,5 @@
-// One whole int8 Darknet residual block (1x1 -> 3x3 -> skip add) in one launch.
+// One whole int8 Darknet residual block (1x1 -> 3x3 -> skip add) in one
+// launch, on Hopper's warpgroup int8 product (wgmma) fed by TMA.
 //
 // Replaces face_vijnana_yolov3_tpu/ops/pallas_block.py::_block_kernel (and its
 // pallas_call in fused_block_int8):
@@ -8,245 +9,267 @@
 // epilogues of int8_mma.cuh (bit-exact with the JAX package's jitted
 // program: same int32 sums, the same fused multiply-adds and roundings).
 //
+// What bounds it on an H100: 2*H*W*(C*Ch + 9*Ch*C) int8 operations per image
+// against 1,979 TOP/s, far above its bytes (x read once, out written once):
+// compute-bound, so the design is about keeping the tensor cores fed.
+//
 // Design. The TPU kernel flattened H*W into sublanes and shifted each tap by
 // slice + concat, because Mosaic had no strided tap access. Here a block
-// takes R output rows of one image and a slice of the output channels:
-//   1. the 1x1 for those rows plus a one-row halo above and below, all
-//      W columns, as a GEMM from device memory (cp.async, double-buffered),
-//      requantized into shared memory as int8 Y[(R+2)][(W+2)][Ch + 16] with
-//      zero border columns and zero rows outside the image;
-//   2. the 3x3 as a GEMM whose A fragments are read straight from Y at the
-//      tap's offset (no im2col, no shifted copy), B = w2 streamed through
-//      shared memory.
-// The 1x1 intermediate never reaches device memory, which is the point of
-// the TPU kernel. Y's pixel stride Ch + 16 bytes puts the 8 pixels of a
-// fragment load on distinct bank groups. The 1x1 halo rows are computed by
-// both neighbouring blocks, and a block that takes a slice of the output
-// channels (n_split > 1, for small batches) recomputes the whole 1x1.
-//
-// What bounds it on an H100: 2*H*W*(C*Ch + 9*Ch*C) int8 operations per image
-// (1.772 G per block at 52^2x256/128) against 1,979 TOP/s dense, far above
-// its bytes (x read once, out written once): compute-bound. This first
-// version uses mma.sync and one block per SM-sized tile; wgmma/TMA later.
+// takes a band of R output rows of one image and C / n_split output
+// channels (ops/block_int8.launch_config picks R and n_split per shape):
+//   1. The 1x1 for the band's rows plus a one-row halo above and below: a
+//      GEMM over those (R+2)*W pixels, which are contiguous in NHWC, with x
+//      and w1 brought in as 128x128-byte TMA boxes (128-byte swizzle). Its
+//      epilogue requantizes into Y in shared memory, laid out K-major without
+//      swizzle so that wgmma reads the 3x3's A operand straight from it:
+//        Y[Ch/16][P][16 bytes], pixel (yr, yc) of the (R+2) x (W+2) band at
+//        q = yr*(W+2) + yc, channel k at (k/16)*LBO + 16*q + k%16,
+//        LBO = 16*P, SBO = 128,
+//      with zero border columns, zero rows outside the image and zero slack.
+//   2. The 3x3 as 9*Ch/32 wgmma k-steps whose A descriptor starts at
+//      16*(q0 + ky*(W+2) + kx): a tap is only a start-address offset, no
+//      im2col and no shifted copy (what PROFILE.md:674-676 says Mosaic could
+//      not express). M runs over the padded width, R*(W+2) rows, so that 64
+//      consecutive rows are 64 uniformly spaced pixels of Y; the epilogue
+//      drops the two junk columns of each row (4 % extra at 52^2, 8 % at
+//      26^2, 15 % at 13^2). w2 streams through the same TMA ring, two
+//      128x128-byte boxes (two K chunks) a stage where Ch allows.
+// One producer warp issues every TMA box of both phases into a ring of
+// kStages stages guarded by full/empty mbarriers (it runs ahead into phase
+// 2's w2 while phase 1 finishes); two consumer warpgroups issue the wgmma
+// (64 rows x 128 channels each per 128x128 tile) and keep one group in
+// flight. The only block-wide barriers are after Y's zeroing and between the
+// phases (with fence.proxy.async: Y is written by st.shared and read by
+// wgmma through the async proxy). Each tile's skip rows and channel
+// parameters are loaded into registers when the tile starts, so their
+// latency hides behind its products; phase 2's tiles leave through shared
+// memory as 16-byte rows.
+// The 1x1 halo rows are computed by both neighbouring bands, and a block
+// that takes a slice of the output channels (n_split > 1, to fill the SMs
+// at stage 5) recomputes the whole 1x1: launch_config counts both.
 
 #include "int8_mma.cuh"
 
 namespace {
 
-using fvy::kBK;
-using fvy::kRowStride;
-using fvy::kThreads;
+using namespace fvy;
 
-constexpr int kBM = 64;    // pixels per GEMM tile
-constexpr int kBN = 128;   // channels per GEMM tile
+constexpr int kT = 128;                      // tile: 128 pixels x 128 channels
+constexpr int kStages = 3;                   // TMA ring depth
+constexpr int kStageBytes = 2 * kT * kT;     // an A box and a B box of 128 x 128
+constexpr int kBoxBytes = kT * kT;
+constexpr int kStagingBytes = kT * (kT + 16);
+constexpr int kConsumers = 256;              // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;    // + one producer warp
+constexpr long long kMaxSmem = 232448;       // an H100 block's shared memory
 
 struct BlockShape {
-  int batch, h, w, c, ch, rows, n_split;
+  int batch, h, w, c, ch, rows, n_split, ypix;
 };
 
-__host__ __device__ constexpr int y_stride(int ch) { return ch + 16; }
-
-__host__ __device__ inline size_t y_bytes(int rows, int w, int ch) {
-  return static_cast<size_t>(rows + 2) * (w + 2) * y_stride(ch);
+// Y's pixel count P: every row phase 2's 128-row tiles read, at any tap.
+__host__ __device__ inline int y_pixels(int rows, int w) {
+  const int m2 = (rows * (w + 2) + kT - 1) / kT * kT;
+  return (m2 + 2 * (w + 2) + 2 + 7) & ~7;
 }
 
+__host__ inline long long block_smem(int w, int ch, int rows) {
+  return 1024 + static_cast<long long>(kStages) * kStageBytes +
+         static_cast<long long>(ch) * y_pixels(rows, w) + kStagingBytes + 16 * kT +
+         2 * kStages * 8;
+}
+
+// P2: w2 boxes a phase-2 stage holds (2 where 9*Ch/128 is even, else 1), a
+// compile-time count so that a stage's wgmma sequence is straight-line code.
+template <int P2>
 __global__ void __launch_bounds__(kThreads)
-block_int8_kernel(const signed char* __restrict__ x,
-                  const signed char* __restrict__ w1,
-                  const signed char* __restrict__ w2,
+block_int8_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap w1map,
+                  const __grid_constant__ CUtensorMap w2map,
+                  const signed char* __restrict__ x,
                   const float* __restrict__ ws1, const float* __restrict__ b1,
                   const float* __restrict__ inv_mid,
                   const float* __restrict__ ws2, const float* __restrict__ b2,
                   const float* __restrict__ skip_s,
                   const float* __restrict__ inv_out,
                   signed char* __restrict__ out, BlockShape s) {
-  extern __shared__ __align__(16) signed char smem[];
-  const int ps = y_stride(s.ch);
-  const size_t ybytes = y_bytes(s.rows, s.w, s.ch);
-  signed char* Y = smem;
-  signed char* As = smem + ybytes;                      // [2][kBM * kRowStride]
-  signed char* Bs = As + 2 * kBM * kRowStride;          // [2][kBN * kRowStride]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 2, warp_n = warp & 3;      // 2 x 4 warps of 32x32
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* Y = ring + kStages * kStageBytes;
+  signed char* S = reinterpret_cast<signed char*>(Y + static_cast<size_t>(s.ch) * s.ypix);
+  float* P = reinterpret_cast<float*>(S + kStagingBytes);  // a tile's channel parameters
+  uint64_t* full = reinterpret_cast<uint64_t*>(P + 4 * kT);
+  uint64_t* empty = full + kStages;
 
   const int b = blockIdx.z;
   const int r0 = blockIdx.x * s.rows;
   const int rows_out = min(s.rows, s.h - r0);
-  const long long img = static_cast<long long>(b) * s.h * s.w;
+  const int rlo = max(r0 - 1, 0), rhi = min(r0 + rows_out + 1, s.h);
+  const int wp = s.w + 2;
+  // Phase 1: m1 pixels (image rows rlo..rhi-1), Ch channels, K = C.
+  const int m1 = (rhi - rlo) * s.w;
+  const int mt1 = (m1 + kT - 1) / kT, nt1 = s.ch / kT, kt1 = s.c / kT;
+  const int pix0 = (b * s.h + rlo) * s.w;
+  // Phase 2: m2 padded-width rows, C / n_split channels from c_lo, K = 9 Ch.
+  const int m2 = rows_out * wp;
+  const int mt2 = (m2 + kT - 1) / kT;
+  const int c_per = s.c / s.n_split, c_lo = blockIdx.y * c_per;
+  const int nt2 = c_per / kT, kc = s.ch / kT, kt2 = 9 * kc;
 
-  for (size_t i = static_cast<size_t>(tid) * 16; i < ybytes; i += kThreads * 16)
-    *reinterpret_cast<uint4*>(Y + i) = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  int acc[2][4][4];
-  auto zero_acc = [&]() {
+  if (threadIdx.x >= kConsumers) {
+    // Producer warp: lane 0 walks both phases' tiles in the consumers' order.
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int mt = 0; mt < mt1; ++mt)
+        for (int nt = 0; nt < nt1; ++nt)
+          for (int kt = 0; kt < kt1; ++kt, ++it) {
+            const int st = it % kStages;
+            mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+            unsigned char* a = ring + st * kStageBytes;
+            mbar_expect_tx(&full[st], 2 * kBoxBytes);
+            tma_load_2d(a, &xmap, kt * kT, pix0 + mt * kT, &full[st]);
+            tma_load_2d(a + kBoxBytes, &w1map, kt * kT, nt * kT, &full[st]);
+          }
+      for (int mt = 0; mt < mt2; ++mt)
+        for (int nt = 0; nt < nt2; ++nt)
+          for (int kt = 0; kt < kt2; kt += P2, ++it) {
+            const int st = it % kStages;
+            mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+            mbar_expect_tx(&full[st], P2 * kBoxBytes);
+            for (int j = 0; j < P2; ++j)
+              tma_load_2d(ring + st * kStageBytes + j * kBoxBytes, &w2map, (kt + j) * kT,
+                          c_lo + nt * kT, &full[st]);
+          }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t ring_u32 = smem_u32(ring), y_u32 = smem_u32(Y);
+  const uint32_t lbo = 16u * s.ypix;
+
+  const size_t ybytes = static_cast<size_t>(s.ch) * s.ypix;
+  for (size_t i = 16 * static_cast<size_t>(threadIdx.x); i < ybytes; i += 16 * kConsumers)
+    *reinterpret_cast<uint4*>(Y + i) = make_uint4(0u, 0u, 0u, 0u);
+  bar_sync(1, kConsumers);
+
+  int acc[kT / 2];
+  int it = 0;
+  // One stage of the ring: wait for its boxes, issue its k32 products, let
+  // the previous stage go once its products are done.
+  auto consume = [&](int prev_st, auto&& issue) -> int {
+    const int st = it % kStages;
+    mbar_wait(&full[st], (it / kStages) & 1);
+    wgmma_fence();
+    issue(ring_u32 + st * kStageBytes);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (prev_st >= 0 && (threadIdx.x & 127) == 0) mbar_arrive(&empty[prev_st]);
+    ++it;
+    return st;
+  };
+  auto finish = [&](int last_st) {
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[last_st]);
+  };
+  auto zero = [&]() {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+    for (int i = 0; i < kT / 2; ++i) acc[i] = 0;
+    fence_acc(acc);
   };
 
-  // ---- 1. the 1x1 over image rows [rlo, rhi): contiguous pixels of x.
-  const int rlo = max(r0 - 1, 0), rhi = min(r0 + rows_out + 1, s.h);
-  const int m1 = (rhi - rlo) * s.w;
-  const signed char* x1 = x + (img + static_cast<long long>(rlo) * s.w) * s.c;
-  const int ktiles1 = s.c / kBK;
-  for (int m0 = 0; m0 < m1; m0 += kBM) {
-    for (int n0 = 0; n0 < s.ch; n0 += kBN) {
-      auto load_stage = [&](int stage, int kt) {
-        if (tid < kBM * 2) {
-          const int r = tid >> 1, half = tid & 1;
-          const bool ok = m0 + r < m1;
-          const signed char* src =
-              ok ? x1 + static_cast<long long>(m0 + r) * s.c + kt * kBK + half * 16 : x;
-          fvy::cp_async16(As + stage * kBM * kRowStride + r * kRowStride + half * 16,
-                          src, ok);
-        }
-        {
-          const int r = tid >> 1, half = tid & 1;  // 128 rows x 2 halves
-          const signed char* src =
-              w1 + static_cast<long long>(n0 + r) * s.c + kt * kBK + half * 16;
-          fvy::cp_async16(Bs + stage * kBN * kRowStride + r * kRowStride + half * 16,
-                          src, true);
-        }
-      };
-      zero_acc();
-      load_stage(0, 0);
-      fvy::cp_async_commit();
-      for (int kt = 0; kt < ktiles1; ++kt) {
-        const int stage = kt & 1;
-        if (kt + 1 < ktiles1) {
-          load_stage(stage ^ 1, kt + 1);
-          fvy::cp_async_commit();
-          fvy::cp_async_wait<1>();
-        } else {
-          fvy::cp_async_wait<0>();
-        }
-        __syncthreads();
-        const signed char* a_rows[2][2];
-        const signed char* b_rows[4];
-        const signed char* a_base = As + stage * kBM * kRowStride;
-        const signed char* b_base = Bs + stage * kBN * kRowStride;
+  // ---- 1. the 1x1 into Y
+  for (int mt = 0; mt < mt1; ++mt)
+    for (int nt = 0; nt < nt1; ++nt) {
+      TileParams<kT, 3, kConsumers> prm;
+      prm.load({ws1, b1, inv_mid}, nt * kT, s.ch, threadIdx.x);
+      zero();
+      int st = -1;
+      for (int kt = 0; kt < kt1; ++kt)
+        st = consume(st, [&](uint32_t stage) {
+          const uint32_t a = stage + wg * 64 * kT, bb = stage + kBoxBytes;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            a_rows[mi][h] = a_base + (warp_m * 32 + mi * 16 + g + 8 * h) * kRowStride;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          b_rows[ni] = b_base + (warp_n * 32 + ni * 8 + g) * kRowStride;
-        fvy::warp_tile_k32(acc, a_rows, b_rows, t);
-        __syncthreads();
-      }
-      // requantize into Y: pixel p of rows [rlo, rhi) -> Y row p/W - (r0-1)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + warp_m * 32 + mi * 16 + g + 8 * h;
-          if (m >= m1) continue;
-          const int r = rlo + m / s.w, col = m % s.w;
-          signed char* yp = Y + (static_cast<size_t>(r - r0 + 1) * (s.w + 2) + col + 1) * ps;
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int n = n0 + warp_n * 32 + ni * 8 + 2 * t + j;
-              yp[n] = fvy::requant(acc[mi][ni][2 * h + j], ws1[n], b1[n], true,
-                                   false, 0.0f, 0.0f, inv_mid[n]);
-            }
-        }
-    }
-  }
-  __syncthreads();
-
-  // ---- 2. the 3x3 from Y, channels [c_lo, c_lo + C / n_split).
-  const int m2 = rows_out * s.w;
-  const int c_per = s.c / s.n_split;
-  const int c_lo = blockIdx.y * c_per;
-  const int kc_per_tap = s.ch / kBK;
-  const int ktiles2 = 9 * kc_per_tap;
-  const long long kdim2 = 9LL * s.ch;
-  for (int m0 = 0; m0 < m2; m0 += kBM) {
-    // top-left tap of this thread's four fragment rows (dummy row 0 past m2)
-    const signed char* y_rows[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+          for (int j = 0; j < kT / 32; ++j)
+            wgmma_k32(acc, smem_desc(a + 32 * j, 16, 1024, kSwizzle128),
+                      smem_desc(bb + 32 * j, 16, 1024, kSwizzle128));
+        });
+      finish(st);
+      bar_sync(1, kConsumers);  // the previous tile is done with P
+      prm.store(P, threadIdx.x);
+      bar_sync(1, kConsumers);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        int m = m0 + warp_m * 32 + mi * 16 + g + 8 * h;
-        if (m >= m2) m = 0;
-        const int rr = m / s.w, cc = m % s.w;
-        y_rows[mi][h] = Y + (static_cast<size_t>(rr) * (s.w + 2) + cc) * ps;
-      }
-    for (int n0 = c_lo; n0 < c_lo + c_per; n0 += kBN) {
-      auto load_b = [&](int stage, int kt) {
-        const int r = tid >> 1, half = tid & 1;
-        const signed char* src =
-            w2 + static_cast<long long>(n0 + r) * kdim2 + kt * kBK + half * 16;
-        fvy::cp_async16(Bs + stage * kBN * kRowStride + r * kRowStride + half * 16,
-                        src, true);
-      };
-      zero_acc();
-      load_b(0, 0);
-      fvy::cp_async_commit();
-      for (int kt = 0; kt < ktiles2; ++kt) {
-        const int stage = kt & 1;
-        if (kt + 1 < ktiles2) {
-          load_b(stage ^ 1, kt + 1);
-          fvy::cp_async_commit();
-          fvy::cp_async_wait<1>();
-        } else {
-          fvy::cp_async_wait<0>();
+        const int p = mt * kT + 64 * wg + 16 * warp + g + 8 * h;
+        if (p >= m1) continue;
+        unsigned char* yp = Y + 16 * ((rlo - r0 + 1 + p / s.w) * wp + p % s.w + 1);
+#pragma unroll
+        for (int q = 0; q < kT / 8; ++q) {
+          const int c = 8 * q + 2 * t, n = nt * kT + c;  // channels n, n + 1
+          const int lo = static_cast<unsigned char>(requant(
+              acc[4 * q + 2 * h], P[c], P[kT + c], true, false, 0.0f, 0.0f, P[2 * kT + c]));
+          const int hi = static_cast<unsigned char>(
+              requant(acc[4 * q + 2 * h + 1], P[c + 1], P[kT + c + 1], true, false, 0.0f,
+                      0.0f, P[2 * kT + c + 1]));
+          *reinterpret_cast<uint16_t*>(yp + (n >> 4) * lbo + (n & 15)) =
+              static_cast<uint16_t>(lo | (hi << 8));
         }
-        __syncthreads();
-        const int tap = kt / kc_per_tap, kc = kt - tap * kc_per_tap;
-        const int ky = tap / 3, kx = tap - 3 * ky;
-        const size_t off = (static_cast<size_t>(ky) * (s.w + 2) + kx) * ps + kc * kBK;
-        const signed char* a_rows[2][2];
-        const signed char* b_rows[4];
-        const signed char* b_base = Bs + stage * kBN * kRowStride;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) a_rows[mi][h] = y_rows[mi][h] + off;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          b_rows[ni] = b_base + (warp_n * 32 + ni * 8 + g) * kRowStride;
-        fvy::warp_tile_k32(acc, a_rows, b_rows, t);
-        __syncthreads();
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + warp_m * 32 + mi * 16 + g + 8 * h;
-          if (m >= m2) continue;
-          const long long pix = img + static_cast<long long>(r0) * s.w + m;
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int n = n0 + warp_n * 32 + ni * 8 + 2 * t + j;
-              const long long o = pix * s.c + n;
-              out[o] = fvy::requant(acc[mi][ni][2 * h + j], ws2[n], b2[n], true,
-                                    true, static_cast<float>(x[o]), skip_s[n],
-                                    inv_out[n]);
-            }
-        }
     }
-  }
-}
+  fence_proxy_async();
+  bar_sync(1, kConsumers);
 
-// Dynamic shared memory of one block: Y, then two stages of A and B tiles.
-long long block_smem(int w, int ch, int rows) {
-  return static_cast<long long>(y_bytes(rows, w, ch)) +
-         2LL * (kBM + kBN) * kRowStride;
+  // ---- 2. the 3x3 from Y, skip add, out
+  for (int mt = 0; mt < mt2; ++mt)
+    for (int nt = 0; nt < nt2; ++nt) {
+      const int n0 = c_lo + nt * kT;
+      auto pix = [&](int r) -> long long {
+        const int qq = mt * kT + r;
+        const int rr = qq / wp, cc = qq - rr * wp;
+        if (qq >= m2 || cc >= s.w) return -1;
+        return (static_cast<long long>(b) * s.h + r0 + rr) * s.w + cc;
+      };
+      // The epilogue's inputs, loaded now: their latency hides behind the products.
+      TileSkip<kT, kT, kConsumers> sk;
+      sk.load(pix, x, s.c, n0, threadIdx.x);
+      TileParams<kT, 4, kConsumers> prm;
+      prm.load({ws2, b2, skip_s, inv_out}, n0, s.c, threadIdx.x);
+      zero();
+      int st = -1;
+      for (int kt = 0; kt < kt2; kt += P2)
+        st = consume(st, [&](uint32_t stage) {
+#pragma unroll
+          for (int h = 0; h < P2; ++h) {
+            const int tap = (kt + h) / kc, c0 = (kt + h - tap * kc) * kT;
+            const int ky = tap / 3, kx = tap - 3 * ky;
+            const uint32_t a = y_u32 + 16u * (mt * kT + 64 * wg + ky * wp + kx);
+            const uint32_t bb = stage + h * kBoxBytes;
+#pragma unroll
+            for (int j = 0; j < kT / 32; ++j)
+              wgmma_k32(acc, smem_desc(a + ((c0 + 32 * j) >> 4) * lbo, lbo, 128, kInterleave),
+                        smem_desc(bb + 32 * j, 16, 1024, kSwizzle128));
+          }
+        });
+      finish(st);
+      bar_sync(1, kConsumers);  // the previous tile has left S and P
+      sk.store(S, threadIdx.x);
+      prm.store(P, threadIdx.x);
+      bar_sync(1, kConsumers);
+      requant_tile<kT>(acc, 64 * wg, S, P, true, true);
+      bar_sync(1, kConsumers);
+      store_tile<kT, kT, kConsumers>(pix, S, out, s.c, n0, threadIdx.x);
+    }
 }
 
 }  // namespace
@@ -254,9 +277,9 @@ long long block_smem(int w, int ch, int rows) {
 // x, out (B, H, W, C) int8; w1 (Ch, 1, 1, C) int8; w2 (C, 3, 3, Ch) int8;
 // ws1, b1, inv_mid (Ch,) and ws2, b2, skip_s, inv_out (C,) f32. C and Ch
 // multiples of 128; `rows` output rows per block; `n_split` blocks share
-// each row tile's output channels (C / n_split a multiple of 128). All
-// contiguous on one device. Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// each band's output channels (C / n_split a multiple of 128). All
+// contiguous, 16-byte aligned, on one device. Launches on `stream`; returns
+// cudaGetLastError() (0 on success), or -1 if a tensor map cannot be encoded.
 extern "C" int fvy_block_int8(const signed char* x, const signed char* w1,
                               const signed char* w2, const float* ws1,
                               const float* b1, const float* inv_mid,
@@ -264,21 +287,32 @@ extern "C" int fvy_block_int8(const signed char* x, const signed char* w1,
                               const float* skip_s, const float* inv_out,
                               signed char* out, int batch, int h, int w, int c,
                               int ch, int rows, int n_split, void* stream) {
-  if (batch < 0 || h < 1 || w < 1 || c % kBN != 0 || ch % kBN != 0 || c < kBN ||
-      ch < kBN || rows < 1 || rows > h || n_split < 1 || c % n_split != 0 ||
-      (c / n_split) % kBN != 0)
+  if (batch < 0 || h < 1 || w < 1 || c % kT != 0 || ch % kT != 0 || c < kT ||
+      ch < kT || rows < 1 || rows > h || n_split < 1 || c % n_split != 0 ||
+      (c / n_split) % kT != 0 || block_smem(w, ch, rows) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const long long smem = block_smem(w, ch, rows);
-  cudaError_t e = cudaFuncSetAttribute(
-      block_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  CUtensorMap xmap, w1map, w2map;
+  const uint32_t box[2] = {kT, kT}, es[2] = {1u, 1u};
+  const uint64_t xdims[2] = {static_cast<uint64_t>(c),
+                             static_cast<uint64_t>(batch) * h * w};
+  const uint64_t xstr[1] = {static_cast<uint64_t>(c)};
+  const uint64_t w1dims[2] = {static_cast<uint64_t>(c), static_cast<uint64_t>(ch)};
+  const uint64_t w2dims[2] = {9ull * ch, static_cast<uint64_t>(c)};
+  const uint64_t w2str[1] = {9ull * ch};
+  if (encode_tiled(&xmap, x, 2, xdims, xstr, box, es, 128) != 0 ||
+      encode_tiled(&w1map, w1, 2, w1dims, xstr, box, es, 128) != 0 ||
+      encode_tiled(&w2map, w2, 2, w2dims, w2str, box, es, 128) != 0)
+    return kErrTensorMap;
+  const int smem = static_cast<int>(block_smem(w, ch, rows));
+  auto kernel = (9 * ch / kT) % 2 == 0 ? block_int8_kernel<2> : block_int8_kernel<1>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  BlockShape s{batch, h, w, c, ch, rows, n_split};
+  const BlockShape s{batch, h, w, c, ch, rows, n_split, y_pixels(rows, w)};
   const dim3 grid(static_cast<unsigned>((h + rows - 1) / rows),
                   static_cast<unsigned>(n_split), static_cast<unsigned>(batch));
-  block_int8_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, w1, w2, ws1, b1, inv_mid, ws2, b2, skip_s, inv_out, out, s);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, w1map, w2map, x, ws1, b1, inv_mid, ws2, b2, skip_s, inv_out, out, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,87 +1,197 @@
-// Shared pieces of the int8 convolution kernels (conv_int8.cu, block_int8.cu):
-// the int8 tensor-core product, cp.async copies, the warp's 32x32 tile step
-// and the requantizing epilogue.
+// The Hopper core of the int8 convolution kernels (conv_int8.cu,
+// block_int8.cu): mbarriers, TMA tile loads, warpgroup int8 products
+// (wgmma), shared-memory matrix descriptors, the tensor-map encoder and the
+// requantizing epilogue.
 //
-// Product: mma.sync m16n8k32 s8 x s8 -> s32. Integer sums are exact in any
-// order, so the accumulators equal the JAX package's int32 convolution
-// (lax.conv_general_dilated with preferred_element_type=int32) bit for bit.
+// Product: wgmma.mma_async m64nNk32 s8 x s8 -> s32 (N = 32, 64 or 128),
+// both operands K-major in shared memory, as 8-bit wgmma requires. Integer
+// sums are exact in any order, so the accumulators equal the JAX package's
+// int32 convolution (lax.conv_general_dilated with
+// preferred_element_type=int32) bit for bit.
 //
-// Operand layout in shared memory: every tile row holds 32 bytes of K (one
-// mma step) at a stride of kRowStride = 48 bytes. The 16 bytes of padding
-// put the 8 rows a fragment load touches on 8 distinct groups of 4 banks.
-// A rows are output pixels, B rows are output channels (weights stored
-// [Cout][K], K contiguous: the "col" operand of the mma).
+// Accumulator layout of m64nN (PTX ISA, wgmma register fragments): thread
+// lane = 4 g + t of warp w (0..3) of the warpgroup holds d[i] at row
+// 16 w + g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 t + (i & 1).
+//
+// Shared-memory layouts (descriptor bits 62-63):
+//   kSwizzle128/64/32: rows of 128/64/32 bytes of K, as a TMA load with the
+//     same swizzle writes them; SBO = 8 rows; a k32 step inside the row is
+//     +32 bytes on the start address. Bases aligned to 1024 bytes.
+//   kInterleave (no swizzle): element (row r, byte k) at
+//     (k / 16) * LBO + 16 r + k % 16, SBO = 128 (8 rows of 16 bytes).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fvy {
 
-constexpr int kThreads = 256;    // 8 warps per block, each a 32x32 output tile
-constexpr int kBK = 32;          // K bytes per mma step
-constexpr int kRowStride = 48;   // shared-memory bytes per tile row
+constexpr int kInterleave = 0, kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3;
 
-__device__ __forceinline__ uint32_t ld32(const signed char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
+// ---- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Waits until the barrier's current phase parity differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// ---- TMA tile loads (global -> shared, completion counted on `bar`)
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
 }
 
-// 16-byte global -> shared copy; `valid` false writes 16 zero bytes (the
-// source is not read, and `src` must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+// Generic-proxy shared-memory writes made visible to the async proxy
+// (wgmma, TMA) of the threads that pass a barrier after this fence.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Barrier `id` (1..15) over `count` threads (a multiple of 32).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- wgmma
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous product.
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// One 32-byte K step of a warp's 32x32 tile: 2 (m16) x 4 (n8) mma tiles.
-// a_rows[mi][h] points at this K step's first byte of tile row
-// mi*16 + g + 8*h (g = lane / 4), b_rows[ni] at that of B row ni*8 + g.
-// Fragment layout of m16n8k32 (PTX ISA): a0/a1 hold rows g/g+8 at K bytes
-// 4t..4t+3 (t = lane % 4), a2/a3 the same rows at 16+4t..; b0/b1 hold B row
-// g at K bytes 4t.. and 16+4t...
-__device__ __forceinline__ void warp_tile_k32(int (&acc)[2][4][4],
-                                              const signed char* const (&a_rows)[2][2],
-                                              const signed char* const (&b_rows)[4],
-                                              int t) {
-  uint32_t a[2][4];
-  uint32_t b[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    a[mi][0] = ld32(a_rows[mi][0] + 4 * t);
-    a[mi][1] = ld32(a_rows[mi][1] + 4 * t);
-    a[mi][2] = ld32(a_rows[mi][0] + 16 + 4 * t);
-    a[mi][3] = ld32(a_rows[mi][1] + 16 + 4 * t);
-  }
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    b[ni][0] = ld32(b_rows[ni] + 4 * t);
-    b[ni][1] = ld32(b_rows[ni] + 16 + 4 * t);
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+// d (64 x N, s32) += A (64 x 32, s8, descriptor a) * B (N x 32, s8, descriptor b)^T
+__device__ __forceinline__ void wgmma_k32(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
 }
+
+__device__ __forceinline__ void wgmma_k32(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+// ---- the epilogue
 
 // The epilogue of models/quant.py::apply_graph_quant (:803-816) and of
 // ops/pallas_block.py::_block_kernel (:99-101, :152-155), as XLA compiles
@@ -99,6 +209,183 @@ __device__ __forceinline__ signed char requant(int acc, float w_scale,
   if (has_skip) h = __fmaf_rn(skip, skip_s, h);
   const float r = fminf(fmaxf(rintf(h * inv), -127.0f), 127.0f);
   return static_cast<signed char>(static_cast<int>(r));
+}
+
+// The epilogue of one output tile of ROWS rows x BN int8 columns (output
+// channels n0..n0+BN-1), run by NTHREADS threads (this one is `gtid` of
+// them). The tile is staged in shared memory S at a row stride of BN + 16
+// bytes; pix(r) gives tile row r's output pixel (out and skip hold `cout`
+// channels a pixel), or -1 for a row that is dropped. The skip rows and the
+// per-channel parameters are loaded into registers when the tile starts
+// (their latency hides behind the tile's products), then staged in S and P.
+
+// Per-channel parameters of a tile: NP arrays of BN floats, staged in P.
+template <int BN, int NP, int NTHREADS>
+struct TileParams {
+  static constexpr int kN = (NP * BN + NTHREADS - 1) / NTHREADS;
+  float v[kN];
+  __device__ __forceinline__ void load(const float* const (&src)[NP], int n0, int cout,
+                                       int gtid) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = gtid + i * NTHREADS, a = idx / BN, n = n0 + idx % BN;
+      const float* p = nullptr;  // src[a], selected without a runtime index
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+        if (a == k) p = src[k];
+      v[i] = p != nullptr && n < cout ? p[n] : 0.0f;
+    }
+  }
+  __device__ __forceinline__ void store(float* P, int gtid) const {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = gtid + i * NTHREADS;
+      if (idx < NP * BN) P[idx] = v[i];
+    }
+  }
+};
+
+// The skip rows of a tile, 16 bytes a register quad, staged in S.
+template <int BN, int ROWS, int NTHREADS>
+struct TileSkip {
+  static constexpr int kVecs = BN / 16, kN = ROWS * kVecs / NTHREADS;
+  static_assert(ROWS * kVecs % NTHREADS == 0, "whole vectors per thread");
+  uint4 v[kN];
+  template <class Pix>
+  __device__ __forceinline__ void load(Pix pix, const signed char* __restrict__ skip,
+                                       int cout, int n0, int gtid) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = gtid + i * NTHREADS, r = idx / kVecs, n = n0 + 16 * (idx % kVecs);
+      const long long p = pix(r);
+      v[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (p < 0) continue;
+      const signed char* src = skip + p * cout + n;
+      if (cout % 16 == 0 && n + 16 <= cout) {
+        v[i] = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (n + j < cout)
+            b[j >> 2] |= static_cast<uint32_t>(static_cast<unsigned char>(src[j]))
+                         << (8 * (j & 3));
+        v[i] = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(signed char* S, int gtid) const {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = gtid + i * NTHREADS;
+      *reinterpret_cast<uint4*>(S + (idx / kVecs) * (BN + 16) + 16 * (idx % kVecs)) = v[i];
+    }
+  }
+};
+
+// Requantizes this warpgroup's accumulators (tile rows row0..row0+63) into
+// S. P holds [w_scale | bias | skip_s | inv_out] of the tile's BN channels;
+// with a skip, S holds the skip rows and each value is replaced in place.
+template <int BN>
+__device__ __forceinline__ void requant_tile(const int (&acc)[BN / 2], int row0,
+                                             signed char* S, const float* P,
+                                             bool has_skip, bool leaky) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 8 * q + 2 * t + j;
+      const float ws = P[c], b = P[BN + c], ss = P[2 * BN + c], inv = P[3 * BN + c];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        signed char* o = S + (row0 + 16 * w + g + 8 * h) * (BN + 16) + c;
+        const float skip = has_skip ? static_cast<float>(*o) : 0.0f;
+        *o = requant(acc[4 * q + 2 * h + j], ws, b, leaky, has_skip, skip, ss, inv);
+      }
+    }
+}
+
+// Writes the tile's rows from S to out as 16-byte rows.
+template <int BN, int ROWS, int NTHREADS, class Pix>
+__device__ __forceinline__ void store_tile(Pix pix, const signed char* S,
+                                           signed char* __restrict__ out, int cout, int n0,
+                                           int gtid) {
+  constexpr int kVecs = BN / 16;
+#pragma unroll
+  for (int i = 0; i < ROWS * kVecs / NTHREADS; ++i) {
+    const int idx = gtid + i * NTHREADS, r = idx / kVecs, n = n0 + 16 * (idx % kVecs);
+    const long long p = pix(r);
+    if (p < 0) continue;
+    const signed char* src = S + r * (BN + 16) + (n - n0);
+    signed char* d = out + p * cout + n;
+    if (cout % 16 == 0 && n + 16 <= cout) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 16 && n + j < cout; ++j) d[j] = src[j];
+    }
+  }
+}
+
+// The first 1024-byte boundary at or above p, reached by an offset from p
+// so that the compiler keeps it in the shared window.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ---- host: tensor maps
+
+// Returned by the entry points when a tensor map cannot be encoded.
+constexpr int kErrTensorMap = -1;
+
+// An int8 tensor map over `rank` dimensions (innermost first; `strides`
+// holds the byte strides of dimensions 1..rank-1), zero fill out of bounds.
+// cuTensorMapEncodeTiled comes from libcuda through the runtime's
+// cudaGetDriverEntryPointByVersion, so the library needs no -lcuda.
+// Returns 0 or kErrTensorMap.
+inline int encode_tiled(CUtensorMap* map, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box, const uint32_t* elem_strides,
+                        int swizzle_bytes) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave,
+                              CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return kErrTensorMap;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const CUtensorMapSwizzle swz =
+      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, static_cast<cuuint32_t>(rank),
+      const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
+      reinterpret_cast<const cuuint64_t*>(strides),
+      reinterpret_cast<const cuuint32_t*>(box),
+      reinterpret_cast<const cuuint32_t*>(elem_strides), CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// Descriptor layout code of a K-major swizzled tile with rows of `bytes`.
+__host__ __device__ constexpr int swizzle_layout(int bytes) {
+  return bytes == 128 ? kSwizzle128 : bytes == 64 ? kSwizzle64 : kSwizzle32;
 }
 
 }  // namespace fvy

@@ -11,7 +11,10 @@ Nothing is downloaded and no prebuilt library is committed.
 Flags: `-fmad=false` and no `--use_fast_math`, so kernels keep IEEE
 division and uncontracted multiply-adds (the parity contract with the JAX
 reference, see csrc/nms_sweep.cu); the int8 epilogues write their fused
-multiply-adds explicitly (csrc/int8_mma.cuh).
+multiply-adds explicitly (csrc/int8_mma.cuh). The int8 kernels' TMA tensor
+maps are encoded on the host with `cuTensorMapEncodeTiled`, which the CUDA
+runtime hands over through `cudaGetDriverEntryPointByVersion`, so the link
+line needs no `-lcuda`.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no nvcc.
@@ -103,8 +106,8 @@ def load() -> ctypes.CDLL:
     lib.fvy_nms_sweep.argtypes = [p, p, p, i, i, f, p]
     lib.fvy_nms_sweep.restype = i
     # x, wq, w_scale, bias, skip, skip_s, inv_out, out,
-    # batch, h, w, cin, cout, k, stride, leaky, stream
-    lib.fvy_conv_int8.argtypes = [p] * 8 + [i] * 8 + [p]
+    # batch, h, w, cin, cout, k, stride, leaky, tile_w, tile_h, stream
+    lib.fvy_conv_int8.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.fvy_conv_int8.restype = i
     # x, w1, w2, ws1, b1, inv_mid, ws2, b2, skip_s, inv_out, out,
     # batch, h, w, c, ch, rows, n_split, stream

@@ -7,29 +7,36 @@ to the mid scales, 3x3 conv over that int8 intermediate (zero padded) +
 epilogue, skip dequant-add, one requant to the block's output scales —
 bit-exact with models/quant.py::apply_graph_quant's stock path, whose
 epilogues ops/conv_int8.py describes. A CUDA tensor goes to the
-hand-written kernel in csrc/block_int8.cu, which keeps the 1x1 result in
-shared memory; a CPU tensor to `block_int8_reference`, two plain int8
+hand-written kernel in csrc/block_int8.cu (TMA-fed wgmma; the 1x1 result
+stays in shared memory in the layout the 3x3's products read), with the
+band and channel split that `launch_config` picks; a CPU tensor to `block_int8_reference`, two plain int8
 convs. There is no fallback between the two. The Pallas `shift_mode`
 switch worked around Mosaic and has no counterpart here.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
     _check_cuda,
     conv_int8_reference,
+    raise_on_error,
 )
 
-# csrc/block_int8.cu: the GEMM tiles are 128 channels wide.
+# csrc/block_int8.cu: tiles of 128 pixels x 128 channels x 128 K bytes, a
+# ring of 3 stages of two 16 KB boxes, the epilogue's 128 x 144-byte staging
+# and 2 KB of channel parameters, and the shared memory of one H100 block
+# and one SM.
 CHANNEL_MULTIPLE = 128
-# Shared memory for the 1x1 intermediate of one block, chosen so two blocks
-# fit on an H100 SM (227 KB) beside their 18 KB of operand tiles.
-Y_BYTES_CAP = 95 * 1024
-# Blocks a launch should reach before it stops splitting output channels
-# (two waves on the 132 SMs of an H100).
-TARGET_BLOCKS = 264
+TILE = 128
+RING_BYTES = 3 * 2 * TILE * TILE
+STAGING_BYTES = TILE * (TILE + 16) + 16 * TILE
+BLOCK_SMEM_LIMIT = 232448
+SM_SMEM = 233472
+SM_COUNT = 132
 
 
 def block_eligible(in_c: int, mid_c: int) -> bool:
@@ -39,21 +46,63 @@ def block_eligible(in_c: int, mid_c: int) -> bool:
     return in_c % CHANNEL_MULTIPLE == 0 and mid_c % CHANNEL_MULTIPLE == 0
 
 
+def y_pixels(rows: int, w: int) -> int:
+    """Pixels P of the kernel's intermediate Y: the (rows + 2) x (w + 2)
+    band plus the slack that phase 2's last 128-row tile reads at the
+    bottom-right tap (csrc/block_int8.cu y_pixels)."""
+    m2 = -(-rows * (w + 2) // TILE) * TILE
+    return (m2 + 2 * (w + 2) + 2 + 7) // 8 * 8
+
+
+def block_smem(w: int, ch: int, rows: int) -> int:
+    """Dynamic shared memory of one block (csrc/block_int8.cu block_smem)."""
+    return 1024 + RING_BYTES + ch * y_pixels(rows, w) + STAGING_BYTES + 48
+
+
+def block_tiles(h: int, w: int, c: int, ch: int, rows: int, n_split: int) -> int:
+    """128x128x128 product tiles one block runs for a band of `rows` rows:
+    the 1x1 over (rows + 2) x w pixels (halo recomputed, all Ch channels
+    whatever n_split), then the 3x3 over rows x (w + 2) padded-width rows
+    for C / n_split channels."""
+    t = TILE
+    m1 = (min(rows, h) + 2) * w
+    m2 = rows * (w + 2)
+    return (-(-m1 // t) * (ch // t) * (c // t)
+            + -(-m2 // t) * (c // n_split // t) * (9 * ch // t))
+
+
+@functools.cache
 def launch_config(batch: int, h: int, w: int, c: int, ch: int) -> tuple[int, int]:
-    """(rows, n_split) for csrc/block_int8.cu: output rows per block, the
-    most whose intermediate (rows + 2) x (w + 2) x (ch + 16) bytes fits
-    Y_BYTES_CAP, spread evenly over the image's row tiles; then the output
-    channels split in 2 or 4 while the launch has fewer than TARGET_BLOCKS
-    blocks."""
-    row_bytes = (w + 2) * (ch + 16)
-    max_rows = max(1, min(h, Y_BYTES_CAP // row_bytes - 2))
-    tiles = -(-h // max_rows)
-    rows = -(-h // tiles)
-    n_split = 1
-    while (tiles * batch * n_split < TARGET_BLOCKS and n_split < 4
-           and (c // (2 * n_split)) % CHANNEL_MULTIPLE == 0):
-        n_split *= 2
-    return rows, n_split
+    """(rows, n_split) for csrc/block_int8.cu: output rows per block and
+    the number of blocks that share a band's output channels.
+
+    Every (rows, n_split) whose block fits the shared memory is scored by
+    waves x blocks per SM x tiles per block (the tensor cores are the
+    bound, blocks on one SM share them), with rows evened out over the
+    image's bands; the least wins, then the fewest blocks.
+    """
+    best = None
+    for bands in range(1, h + 1):
+        rows = -(-h // bands)
+        if -(-h // rows) != bands:
+            continue
+        smem = block_smem(w, ch, rows)
+        if smem > BLOCK_SMEM_LIMIT:
+            continue
+        per_sm = max(1, SM_SMEM // (smem + 1024))
+        for n_split in (1, 2, 4):
+            if (c // n_split) % CHANNEL_MULTIPLE or c % n_split:
+                continue
+            blocks = batch * bands * n_split
+            waves = -(-blocks // (SM_COUNT * per_sm))
+            cost = waves * per_sm * block_tiles(h, w, c, ch, rows, n_split)
+            key = (cost, blocks, n_split)
+            if best is None or key < best[0]:
+                best = (key, rows, n_split)
+    if best is None:
+        raise ValueError(f"block_int8: no band of a {w}-wide image with Ch {ch} "
+                         f"fits {BLOCK_SMEM_LIMIT} bytes of shared memory")
+    return best[1], best[2]
 
 
 def block_int8_reference(x_q, w1_q, w2_q, ws1, b1, inv_s_mid, ws2, b2, skip_s,
@@ -107,8 +156,7 @@ def block_int8(x_q: torch.Tensor, w1_q: torch.Tensor, w2_q: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.fvy_block_int8(*(t.data_ptr() for t in args), out.data_ptr(),
                                 b, h, w, c, ch, rows, n_split, stream)
-    if rc != 0:
-        raise RuntimeError(f"block_int8: kernel launch failed, CUDA error {rc}")
+    raise_on_error("block_int8", rc)
     block_int8.launches += 1
     return out
 

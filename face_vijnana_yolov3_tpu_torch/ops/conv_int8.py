@@ -18,12 +18,16 @@ program bit for bit; an unfused multiply-add differs in about a quarter of
 the values). The CUDA kernel writes them as __fmaf_rn; the plain twin
 rounds once through float64 (`fma_f32`).
 
-A CUDA tensor goes to the hand-written kernel in csrc/conv_int8.cu; a CPU
+A CUDA tensor goes to the hand-written kernel in csrc/conv_int8.cu (a
+TMA-fed wgmma implicit GEMM when Cin is a multiple of 32, else the gather
+kernel that conv_0 takes), with the tile that `launch_config` picks; a CPU
 tensor to `conv_int8_reference`. There is no fallback between the two: a
-CUDA call that cannot build or launch raises.
+CUDA call that cannot build, encode its tensor maps or launch raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +99,52 @@ def conv_int8_reference(x_q, w_q, w_scale, bias, inv_out, *, stride: int,
                              skip_s=skip_s)
 
 
+# csrc/conv_int8.cu: output pixels per TMA tile, K bytes the gather kernel
+# takes, and the gather kernel's band budget (output pixels, input bytes).
+TILE_PIXELS = 128
+GATHER_MAX_K = 1024
+GATHER_PIXELS = 2048
+GATHER_BAND_BYTES = 96 * 1024
+
+
+def out_size(h: int, w: int, k: int, stride: int) -> tuple[int, int]:
+    pad = k // 2
+    return (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+
+
+@functools.cache
+def launch_config(h: int, w: int, cin: int, k: int, stride: int) -> tuple[int, int]:
+    """(tile_w, tile_h) for csrc/conv_int8.cu.
+
+    Cin a multiple of 32 (the TMA kernel): a tile is a rectangle of
+    tile_h x tile_w output pixels of one image, at most TILE_PIXELS, and
+    every tile costs the same 128-row product; the rectangle that covers
+    the Ho x Wo image with the fewest tiles wins, the widest on a tie
+    (longer contiguous rows per TMA box). Otherwise (the gather kernel,
+    conv_0): tile_h output rows per band, about GATHER_PIXELS output pixels,
+    with the haloed input band within GATHER_BAND_BYTES; tile_w is 0.
+    """
+    ho, wo = out_size(h, w, k, stride)
+    if cin % 32 == 0:
+        best = None
+        for tw in range(1, min(wo, TILE_PIXELS) + 1):
+            th = min(TILE_PIXELS // tw, ho)
+            key = (-(-wo // tw) * -(-ho // th), -tw)
+            if best is None or key < best[0]:
+                best = (key, tw, th)
+        return best[1], best[2]
+    if k * k * cin > GATHER_MAX_K:
+        raise ValueError(f"conv_int8: K = {k * k * cin} with Cin {cin} not a multiple "
+                         f"of 32: the gather kernel takes K <= {GATHER_MAX_K}")
+    rows = max(1, min(ho, GATHER_PIXELS // wo))
+    while rows > 1 and ((rows - 1) * stride + k) * w * cin > GATHER_BAND_BYTES:
+        rows -= 1
+    if (k * w * cin) > GATHER_BAND_BYTES:
+        raise ValueError(f"conv_int8: an input band of {k} rows of {w} x {cin} "
+                         f"bytes exceeds {GATHER_BAND_BYTES}")
+    return 0, rows
+
+
 def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
     dev = next(iter(tensors.values())).device
     for key, t in tensors.items():
@@ -111,6 +161,14 @@ def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
         raise ValueError(f"{name}: tensors on {dev}; expected one CUDA device "
                          "or the CPU")
     return dev
+
+
+def raise_on_error(name: str, rc: int) -> None:
+    """Raise for a nonzero return code of an int8 kernel's C entry point."""
+    if rc == -1:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a TMA tensor map")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
 
 
 def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -134,8 +192,7 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if k not in (1, 3) or k2 != k or wcin != cin or stride not in (1, 2):
         raise ValueError(f"conv_int8: x {tuple(x_q.shape)}, w {tuple(w_q.shape)}, "
                          f"stride {stride}: need k in (1, 3), stride in (1, 2)")
-    pad = k // 2
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    ho, wo = out_size(h, w, k, stride)
     tensors = {"x_q": x_q, "w_q": w_q, "w_scale": w_scale, "bias": bias,
                "inv_out": inv_out}
     dtypes = {"x_q": torch.int8, "w_q": torch.int8, "w_scale": torch.float32,
@@ -156,6 +213,7 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     from face_vijnana_yolov3_tpu_torch import kernels
 
     lib = kernels.load()
+    tile_w, tile_h = launch_config(h, w, cin, k, stride)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fvy_conv_int8(
@@ -163,10 +221,9 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
             None if skip_q is None else skip_q.data_ptr(),
             None if skip_s is None else skip_s.data_ptr(),
             inv_out.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, k, stride, int(leaky), stream,
+            b, h, w, cin, cout, k, stride, int(leaky), tile_w, tile_h, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"conv_int8: kernel launch failed, CUDA error {rc}")
+    raise_on_error("conv_int8", rc)
     conv_int8.launches += 1
     return out
 

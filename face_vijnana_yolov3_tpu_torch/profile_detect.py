@@ -31,6 +31,8 @@ def category(name: str) -> str:
     for own in ("block_int8", "conv_int8", "nms_sweep", "front_fused"):
         if own in n:
             return own
+    if "conv_tma_kernel" in n or "conv_gather_kernel" in n:  # csrc/conv_int8.cu
+        return "conv_int8"
     if "memcpy" in n or "memset" in n:
         return "copy"
     if "conv" in n or "xmma" in n or "gemm" in n or "winograd" in n or "fft" in n:

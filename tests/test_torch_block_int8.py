@@ -30,6 +30,8 @@ from face_vijnana_yolov3_tpu_torch.ops.block_int8 import (
     block_int8_reference,
     launch_config,
 )
+from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import requant_reference
+from test_torch_conv_int8 import _fragment_rows_cols
 
 torch.set_num_threads(2)
 
@@ -147,11 +149,115 @@ def test_plain_version_matches_the_pallas_kernel(c, ch, h):
 def test_launch_config_covers_the_image(b, c, ch, w):
     rows, n_split = launch_config(b, w, w, c, ch)
     tiles = -(-w // rows)
-    assert 1 <= rows <= w and (tiles - 1) * rows < w  # no empty row tile
-    assert (rows + 2) * (w + 2) * (ch + 16) <= block_mod.Y_BYTES_CAP
+    assert 1 <= rows <= w and (tiles - 1) * rows < w  # no empty row band
+    assert block_mod.block_smem(w, ch, rows) <= block_mod.BLOCK_SMEM_LIMIT
     assert n_split in (1, 2, 4) and (c // n_split) % 128 == 0
-    if n_split > 1:  # split only while the launch is short of blocks
-        assert tiles * b * n_split // 2 < block_mod.TARGET_BLOCKS
+    # Y holds the band with its halo and every row phase 2 reads at any tap.
+    p = block_mod.y_pixels(rows, w)
+    assert p % 8 == 0 and p * 16 < 2 ** 18  # the descriptor's LBO field
+    assert p >= (rows + 2) * (w + 2)
+    assert p >= -(-rows * (w + 2) // 128) * 128 + 2 * (w + 2) + 2
+    # No other fitting (rows, n_split) scores lower in the config's model.
+    per_sm = lambda r: max(1, block_mod.SM_SMEM // (block_mod.block_smem(w, ch, r) + 1024))  # noqa: E731
+    cost = lambda r, n: (-(-b * -(-w // r) * n // (block_mod.SM_COUNT * per_sm(r)))  # noqa: E731
+                         * per_sm(r) * block_mod.block_tiles(w, w, c, ch, r, n))
+    best = cost(rows, n_split)
+    for r in range(1, w + 1):
+        if block_mod.block_smem(w, ch, r) <= block_mod.BLOCK_SMEM_LIMIT:
+            assert all(cost(r, n) >= best or r != -(-w // -(-w // r))
+                       for n in (1, 2, 4) if (c // n) % 128 == 0)
+
+
+def _emulate_kernel(x, w1, w2, ws1, b1, inv_mid, ws2, b2, skip_s, inv_out,
+                    rows, n_split):
+    """csrc/block_int8.cu walked in numpy with its index math, per block:
+    phase 1's 128-pixel tiles over the contiguous band rows (junk pixels past
+    the band computed and dropped), its requant into Y as a flat byte array
+    in the interleaved layout (channel k of pixel q at (k/16)*LBO + 16q +
+    k%16, LBO = 16P, zero borders and slack); phase 2's 128-row tiles over
+    the padded width, each warpgroup's A operand read through the no-swizzle
+    descriptor (start 16*(q0 + ky*(W+2) + kx) + (k0/16)*LBO, rows at 16 bytes,
+    K chunks at LBO), the output-channel split, the dropped junk columns and
+    the fragment-to-pixel mapping."""
+    bsz, h, w, c = x.shape
+    ch = w1.shape[0]
+    wp = w + 2
+    p_y = block_mod.y_pixels(rows, w)
+    lbo = 16 * p_y
+    xf = x.reshape(-1, c).astype(np.int64)
+    w1f = w1.reshape(ch, c).astype(np.int64)
+    w2f = w2.reshape(c, 9 * ch).astype(np.int64)
+    rr_f, cc_f = _fragment_rows_cols(128)
+    out = np.zeros_like(x)
+    hits = np.zeros(x.shape, np.int64)
+    c_per = c // n_split
+    t = torch.from_numpy
+    i16 = np.arange(64)[:, None] * 16
+    for b in range(bsz):
+        for r0 in range(0, h, rows):
+            rows_out = min(rows, h - r0)
+            rlo, rhi = max(r0 - 1, 0), min(r0 + rows_out + 1, h)
+            m1 = (rhi - rlo) * w
+            pix0 = (b * h + rlo) * w
+            for cy in range(n_split):
+                y = np.zeros(ch * p_y, np.int64)
+                for mt in range(-(-m1 // 128)):
+                    a = np.zeros((128, c), np.int64)
+                    src = xf[pix0 + mt * 128:pix0 + mt * 128 + 128]  # zero past the tensor
+                    a[:len(src)] = src
+                    for nt in range(ch // 128):
+                        acc = a @ w1f[nt * 128:nt * 128 + 128].T
+                        p = mt * 128 + rr_f
+                        keep = p < m1
+                        n = nt * 128 + cc_f[keep]
+                        q = (rlo - r0 + 1 + p[keep] // w) * wp + p[keep] % w + 1
+                        val = requant_reference(t(acc[rr_f[keep], cc_f[keep]]), t(ws1)[n],
+                                                t(b1)[n], t(inv_mid)[n], leaky=True)
+                        y[(n >> 4) * lbo + 16 * q + (n & 15)] = val.numpy()
+                m2 = rows_out * wp
+                for mt in range(-(-m2 // 128)):
+                    for nt in range(c_per // 128):
+                        n0 = cy * c_per + nt * 128
+                        acc = np.zeros((128, 128), np.int64)
+                        for kt in range(9 * ch // 128):
+                            tap, c0 = divmod(kt * 128, ch)
+                            ky, kx = divmod(tap, 3)
+                            k = c0 + np.arange(128)[None, :]
+                            for wg in range(2):
+                                start = 16 * (mt * 128 + 64 * wg + ky * wp + kx)
+                                a = y[start + (k >> 4) * lbo + i16 + (k & 15)]
+                                acc[64 * wg:64 * wg + 64] += (
+                                    a @ w2f[n0:n0 + 128, kt * 128:kt * 128 + 128].T)
+                        qq = mt * 128 + rr_f
+                        yr, yc = qq // wp, qq % wp
+                        keep = (qq < m2) & (yc < w)
+                        oy, ox = r0 + yr[keep], yc[keep]
+                        n = n0 + cc_f[keep]
+                        val = requant_reference(
+                            t(acc[rr_f[keep], cc_f[keep]]), t(ws2)[n], t(b2)[n],
+                            t(inv_out)[n], leaky=True, skip_q=t(x[b, oy, ox, n]),
+                            skip_s=t(skip_s)[n])
+                        out[b, oy, ox, n] = val.numpy()
+                        hits[b, oy, ox, n] += 1
+    assert (hits == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,c,ch,rows,n_split", [
+    (2, 5, 6, 256, 128, 2, 2),   # bands with a ragged last one, split channels
+    (1, 4, 13, 256, 256, 4, 1),  # one band: halo rows outside the image
+    (1, 7, 3, 384, 128, 3, 1),   # narrow rows, C of three tiles
+    (2, 9, 9, 512, 128, 0, 0),   # the launch_config's own choice
+])
+def test_kernel_index_math_matches_the_plain_twin(b, h, w, c, ch, rows, n_split):
+    """The CUDA kernel cannot run here: its band, Y layout, tap offsets,
+    padded-width rows, channel split and epilogue mapping, walked in numpy,
+    give the plain twin's output bit for bit."""
+    args = _random_block(b, h, w, c, ch, seed=b + h + c)
+    if rows == 0:
+        rows, n_split = launch_config(b, h, w, c, ch)
+    got = _emulate_kernel(*(a.numpy() for a in args), rows, n_split)
+    np.testing.assert_array_equal(got, block_int8_reference(*args).numpy())
 
 
 def test_wrapper_refuses_bad_calls():
