@@ -9,19 +9,23 @@ which raises on failure (exit code != 0):
 1. device   — the card's name, power limit and TF32 flags;
 2. build    — nvcc builds the port's four CUDA kernels from csrc/;
 3. kernels  — each kernel vs its plain PyTorch version on the card,
-              `torch.equal` required: the NMS sweep at B=128, N=169;
+              `torch.equal` required: the NMS sweep at B 1, 32, 128 x N 1,
+              31, 32, 33, 169, 1024 (float, integer and degenerate boxes;
+              non-finite boxes, absent and tied scores at N=169);
               conv_int8 at every conv_int8 shape of the int8 trunk at 416²
               (b=8 and b=1, with and without skip, k 1 and 3, stride 1 and
               2), at each (cin, cout, k, stride) on a ragged 11x19 input at
               b=3, plus rectangular inputs; block_int8 at the three residual
               stages (b=32 and b=1) and on 11x19 at b=3. The bf16 fused front
-              (fused_front) at 416² b=8 and 100² (ragged tiles) within one
-              bf16 step on at most 0.1 % of the elements (FRONT_*). Then
+              (fused_front) at 416² b=1, 8, 32, 100² (ragged tiles) and 98²
+              (the loader without TMA) within one bf16 step on at most 0.1 %
+              of the elements (FRONT_*). Then
               each is timed with CUDA events at the main path's shapes (one
               416² trunk at b=32 for the int8 kernels, with the blocks on,
               and conv_int8 again over the 52 convs with them off, each call
               and its `_int_mm` yardstick as device time of a replayed CUDA
-              graph; the front at b=32)
+              graph; the NMS sweep at B=128 and B=32 and the front at b=32
+              the same way, with per-call events beside them)
               beside its plain version, its bound and a library yardstick:
               one `torch._int_mm` per int8 GEMM (product only: the im2col
               the library would need is not counted), the two cuDNN bf16
@@ -79,11 +83,17 @@ F32_TIMING_BATCHES = (8, 32)
 INT8_TIMING_BATCHES = (32, 128)
 BF16_TIMING_BATCHES = (32, 128)
 BF16_DEPTHS = (2, 0)
-KERNEL_B, KERNEL_N = 128, 169
+KERNEL_B, KERNEL_N = 128, 169  # nms_sweep timing; also at NMS_TIMING_B2
+NMS_TIMING_B2 = 32  # the detect_batch b32 shape
+NMS_CHECK_B = (1, 32, 128)  # nms_sweep vs plain: every batch at every N
+NMS_CHECK_N = (1, 31, 32, 33, 169, 1024)
 CONV_CHECK_B = 8  # conv_int8 vs plain
 RAGGED_HW = (11, 19)  # ragged kernel checks at b=3
 TRUNK_B = 32  # int8 kernel timings: one trunk at this batch
-FRONT_CHECKS = ((8, 416), (3, 100))  # fused_front vs plain: (batch, size)
+# fused_front vs plain: (batch, size); 416² at b1 (fewer tiles than SMs), b8
+# and b32 (many tiles a persistent block), 100² (ragged tiles), 98² (S % 4
+# == 2: the loader without TMA)
+FRONT_CHECKS = ((1, 416), (8, 416), (32, 416), (3, 100), (2, 98))
 FRONT_B = 32  # fused_front timing and the bf16 detection program
 # Card vs CPU head: cuDNN and the CPU sum each conv in another order, and
 # cuDNN may pick Winograd/FFT algorithms for f32, whose rounding differs more.
@@ -115,10 +125,11 @@ PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
 PEAK_F32 = 67e12  # f32 operations / s outside the tensor cores
 HBM = 3.35e12  # bytes / s
-# NMS: f32 operations per (live row i, later row j) IoU test in
-# csrc/nms_sweep.cu: two overlaps (4 each), the product, area_b (3), the
-# union (2), the division and the comparison.
-NMS_OPS_PER_PAIR = 16
+# NMS: f32 operations per (live row i, later row j) IoU test: two overlaps
+# (4 each), the product, the union (2), the division and the comparison;
+# and per box its area (3), which the pairs share.
+NMS_OPS_PER_PAIR = 13
+NMS_OPS_PER_BOX = 3
 
 
 def nvidia_smi() -> str:
@@ -176,7 +187,10 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
 
 
 def sorted_case(kind: str, b: int, n: int, rng):
-    """Descending-sorted (boxes (B,N,4), scores (B,N)) on the card, 20 absent rows."""
+    """Descending-sorted (boxes (B,N,4), scores (B,N)) on the card, 20 absent
+    rows; "nonfinite": NaN and infinite coordinates on a few boxes;
+    "absent": every score 0; "ties": scores on a 0.1 grid (equal
+    scores in adjacent rows)."""
     if kind == "degenerate":
         boxes = np.zeros((b, n, 4), np.float32)  # 0/0 IoU everywhere
     else:
@@ -188,6 +202,14 @@ def sorted_case(kind: str, b: int, n: int, rng):
     scores = rng.uniform(0.01, 1.0, (b, n)).astype(np.float32)
     for k in range(b):
         scores[k, rng.integers(0, n, 20)] = 0.0
+    if kind == "nonfinite":  # NaN and infinite coordinates on a few boxes
+        flat = boxes.reshape(-1)
+        pick = rng.choice(flat.size, max(1, flat.size // 25), replace=False)
+        flat[pick] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), pick.size)
+    if kind == "absent":
+        scores[:] = 0.0
+    if kind == "ties":
+        scores = np.round(scores, 1).astype(np.float32)
     scores = -np.sort(-scores, axis=-1)
     return torch.from_numpy(boxes).to(DEVICE), torch.from_numpy(scores).to(DEVICE)
 
@@ -503,8 +525,9 @@ def check_front(rng) -> float:
 
 
 def time_front(ops, card, rng) -> dict:
-    """ms of fused_front at FRONT_B beside its plain twin, its bound, the two
-    cuDNN bf16 convs and the port's stock depth-0 bf16 front."""
+    """Device ms (a replayed CUDA graph) of fused_front at FRONT_B beside its
+    plain twin, its bound, the two cuDNN bf16 convs and the port's stock
+    depth-0 bf16 front, and the kernel's ms a call between CUDA events."""
     import torch.nn.functional as F
 
     from face_vijnana_yolov3_tpu_torch.models import darknet
@@ -515,11 +538,12 @@ def time_front(ops, card, rng) -> dict:
 
     b, s = FRONT_B, IMAGE_SIZE
     x, folded = front_operands(b, s, rng)
-    k_ms = cuda_ms(lambda: fused_front(x, folded), 20)
-    p_ms = cuda_ms(lambda: fused_front_plain(x, folded), 5, warmup=1)
+    k_ms = graph_ms(lambda: fused_front(x, folded))
+    e_ms = cuda_ms(lambda: fused_front(x, folded), 20)
+    p_ms = graph_ms(lambda: fused_front_plain(x, folded), reps=5)
     stock_ops = ops[:2] + [("output", "t")]
-    stock_ms = cuda_ms(lambda: darknet.apply_graph_folded(
-        folded, x, stock_ops, compute_dtype=torch.bfloat16), 10)
+    stock_ms = graph_ms(lambda: darknet.apply_graph_folded(
+        folded, x, stock_ops, compute_dtype=torch.bfloat16), reps=10)
     xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
     k0 = folded["conv_0"]["kernel"].to(torch.bfloat16)
     k1 = folded["conv_1"]["kernel"].to(torch.bfloat16)
@@ -529,14 +553,16 @@ def time_front(ops, card, rng) -> dict:
         F.conv2d(xb, k0, padding=1)
         F.conv2d(y, k1, stride=2, padding=1)
 
-    lib_ms = cuda_ms(cudnn_pair, 20)
+    lib_ms = graph_ms(cudnn_pair)
     g = s // 2
     nbytes = b * s * s * 3 * 4 + b * g * g * 64 * 2 + 2 * (32 * 27 + 64 * 288) + 4 * 96
     n_ops = 2 * b * (s * s * 27 * 32 + g * g * 288 * 64)
     b_ms, b_by = bound(nbytes, n_ops, PEAK_BF16)
-    rec = dict(ms=float(np.median(k_ms)), plain_ms=float(np.median(p_ms)),
-               library_ms=float(np.median(lib_ms)), bound_ms=b_ms, bound_by=b_by)
-    print(f"[kernels] fused_front b={b} {s}² on {card}: kernel {quartiles(k_ms)}, "
+    rec = dict(ms=float(np.median(k_ms)), events_ms=float(np.median(e_ms)),
+               plain_ms=float(np.median(p_ms)), library_ms=float(np.median(lib_ms)),
+               stock_ms=float(np.median(stock_ms)), bound_ms=b_ms, bound_by=b_by)
+    print(f"[kernels] fused_front b={b} {s}² on {card}, all on the device (CUDA graph "
+          f"replay): kernel {quartiles(k_ms)}, {quartiles(e_ms)} a call between events, "
           f"{n_ops / (rec['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
           f"{nbytes / (rec['ms'] * 1e-3) / 1e9:.0f} GB/s; plain {quartiles(p_ms)}; "
           f"two cuDNN bf16 convs (products only) {quartiles(lib_ms)}; the port's stock "
@@ -787,29 +813,46 @@ def main() -> int:
 
     # 3. kernels vs plain versions, then their times
     max_err = 0.0
-    for kind in ("float", "integer", "degenerate"):
-        boxes, scores = sorted_case(kind, KERNEL_B, KERNEL_N, rng)
-        for th in (0.45, 0.5):
+    cases = [(kind, b, n) for kind in ("float", "integer", "degenerate")
+             for b in NMS_CHECK_B for n in NMS_CHECK_N]
+    cases += [(kind, b, KERNEL_N) for kind in ("nonfinite", "absent", "ties")
+              for b in NMS_CHECK_B]
+    for kind, b, n in cases:
+        boxes, scores = sorted_case(kind, b, n, rng)
+        for th in ((0.45, 0.5) if n == KERNEL_N else (0.45,)):
             got = nms_sweep(boxes, scores, th)
             want = nms_sweep_reference(boxes, scores, th)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"nms_sweep != plain version ({kind}, th {th})")
+                raise AssertionError(f"nms_sweep != plain version ({kind}, B={b}, N={n}, "
+                                     f"th {th})")
             max_err = max(max_err, float((got - want).abs().max()))
-            print(f"[kernels] nms_sweep {kind} th={th}: torch.equal with the plain "
-                  f"version; suppressed {int(((want == 0) & (scores > 0)).sum())} "
-                  f"of {int((scores > 0).sum())} live rows")
-    boxes, scores = sorted_case("integer", KERNEL_B, KERNEL_N, rng)
-    k_ms = cuda_ms(lambda: nms_sweep(boxes, scores, 0.5), 50)
-    p_ms = cuda_ms(lambda: nms_sweep_reference(boxes, scores, 0.5), 20)
-    kept = nms_sweep(boxes, scores, 0.5) > 0
-    # IoU tests this input needs: each kept row i against every later row.
-    pairs = int((kept * (KERNEL_N - 1 - torch.arange(KERNEL_N, device=dev))).sum())
-    nms_bound, nms_bound_by = bound(KERNEL_B * KERNEL_N * (16 + 4 + 4),
-                                    NMS_OPS_PER_PAIR * pairs, PEAK_F32)
-    print(f"[kernels] nms_sweep B={KERNEL_B} N={KERNEL_N} on {card}: kernel "
-          f"{quartiles(k_ms)}; plain {quartiles(p_ms)}; bound {nms_bound * 1e3:.3f} us "
-          f"by {nms_bound_by} ({pairs} IoU tests)")
+            if b == KERNEL_B and n in (KERNEL_N, 1024):
+                print(f"[kernels] nms_sweep {kind} B={b} N={n} th={th}: torch.equal with "
+                      f"the plain version; suppressed {int(((want == 0) & (scores > 0)).sum())} "
+                      f"of {int((scores > 0).sum())} live rows")
+    print(f"[kernels] nms_sweep: torch.equal with the plain version in all {len(cases)} "
+          f"cases (B {NMS_CHECK_B} x N {NMS_CHECK_N} x float/integer/degenerate; "
+          f"non-finite boxes, absent and tied scores at N={KERNEL_N})")
+    nms_rec = {}
+    for b in (KERNEL_B, NMS_TIMING_B2):
+        boxes, scores = sorted_case("integer", b, KERNEL_N, rng)
+        d_ms = graph_ms(lambda: nms_sweep(boxes, scores, 0.5))
+        k_ms = cuda_ms(lambda: nms_sweep(boxes, scores, 0.5), 50)
+        p_ms = cuda_ms(lambda: nms_sweep_reference(boxes, scores, 0.5), 20)
+        kept = nms_sweep(boxes, scores, 0.5) > 0
+        # IoU tests this input needs: each kept row i against every later row.
+        pairs = int((kept * (KERNEL_N - 1 - torch.arange(KERNEL_N, device=dev))).sum())
+        nms_bound, nms_bound_by = bound(
+            b * KERNEL_N * (16 + 4 + 4),
+            NMS_OPS_PER_PAIR * pairs + NMS_OPS_PER_BOX * b * KERNEL_N, PEAK_F32)
+        nms_rec[b] = dict(ms=float(np.median(d_ms)), events_ms=float(np.median(k_ms)),
+                          plain_ms=float(np.median(p_ms)), bound_ms=nms_bound,
+                          bound_by=nms_bound_by)
+        print(f"[kernels] nms_sweep B={b} N={KERNEL_N} on {card}: kernel {quartiles(d_ms)} "
+              f"on the device, {quartiles(k_ms)} a call between events (host launch "
+              f"included); plain {quartiles(p_ms)}; bound {nms_bound * 1e3:.3f} us by "
+              f"{nms_bound_by} ({pairs} IoU tests); {int(kept.sum())} rows kept")
     ops = darknet.trunk_graph()
     int8_err = check_int8_kernels(ops, rng)
     int8_rec = time_int8_kernels(ops, card, rng)
@@ -975,6 +1018,7 @@ def main() -> int:
     print(f"[timing] int8 calibration (32 images, one candidate) {calib_s:.2f} s; "
           f"total run {time.perf_counter() - t_start:.0f} s")
 
+    nms = nms_rec[KERNEL_B]
     kernel_lines = [{
         "name": "nms_sweep",
         "route": "cuda",
@@ -982,11 +1026,13 @@ def main() -> int:
         "replaces": "face_vijnana_yolov3_tpu/ops/pallas_nms.py:35",
         "launches": launches["nms_sweep"],
         "max_abs_err": max_err,
-        "ms": float(np.median(k_ms)),
-        "plain_ms": float(np.median(p_ms)),
-        "bound_ms": nms_bound,
-        "bound_by": nms_bound_by,
+        "ms": nms["ms"],
+        "plain_ms": nms["plain_ms"],
+        "bound_ms": nms["bound_ms"],
+        "bound_by": nms["bound_by"],
         "library_ms": None,
+        "events_ms": nms["events_ms"],
+        f"ms_b{NMS_TIMING_B2}": nms_rec[NMS_TIMING_B2]["ms"],
     }]
     off = int8_rec["conv_int8 blocks off"]
     for name, src, replaces, rec, n, err in (
@@ -1005,6 +1051,8 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
+        if name == "fused_front":
+            kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
         if name == "conv_int8":  # the default path: the trunk with the blocks off
             kernel_lines[-1].update(
                 ms_blocks_off=off["ms"], plain_ms_blocks_off=off["plain_ms"],

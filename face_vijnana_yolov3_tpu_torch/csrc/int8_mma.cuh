@@ -1,7 +1,6 @@
-// The Hopper core of the int8 convolution kernels (conv_int8.cu,
-// block_int8.cu): mbarriers, TMA tile loads, warpgroup int8 products
-// (wgmma), shared-memory matrix descriptors, the tensor-map encoder and the
-// requantizing epilogue.
+// The int8 core of the int8 convolution kernels (conv_int8.cu,
+// block_int8.cu): warpgroup int8 products (wgmma) and the requantizing
+// epilogue, over the generic Hopper helpers of hopper.cuh.
 //
 // Product: wgmma.mma_async m64nNk32 s8 x s8 -> s32 (N = 32, 64 or 128),
 // both operands K-major in shared memory, as 8-bit wgmma requires. Integer
@@ -12,115 +11,15 @@
 // Accumulator layout of m64nN (PTX ISA, wgmma register fragments): thread
 // lane = 4 g + t of warp w (0..3) of the warpgroup holds d[i] at row
 // 16 w + g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 t + (i & 1).
-//
-// Shared-memory layouts (descriptor bits 62-63):
-//   kSwizzle128/64/32: rows of 128/64/32 bytes of K, as a TMA load with the
-//     same swizzle writes them; SBO = 8 rows; a k32 step inside the row is
-//     +32 bytes on the start address. Bases aligned to 1024 bytes.
-//   kInterleave (no swizzle): element (row r, byte k) at
-//     (k / 16) * LBO + 16 r + k % 16, SBO = 128 (8 rows of 16 bytes).
+// A k32 step inside a swizzled row is +32 bytes on the start address.
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace fvy {
 
-constexpr int kInterleave = 0, kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// Waits until the barrier's current phase parity differs from `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// ---- TMA tile loads (global -> shared, completion counted on `bar`)
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Generic-proxy shared-memory writes made visible to the async proxy
-// (wgmma, TMA) of the threads that pass a barrier after this fence.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Barrier `id` (1..15) over `count` threads (a multiple of 32).
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// ---- wgmma
-
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous product.
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
+// ---- wgmma, int8
 
 // d (64 x N, s32) += A (64 x 32, s8, descriptor a) * B (N x 32, s8, descriptor b)^T
 __device__ __forceinline__ void wgmma_k32(int (&d)[16], uint64_t a, uint64_t b) {
@@ -326,66 +225,6 @@ __device__ __forceinline__ void store_tile(Pix pix, const signed char* S,
       for (int j = 0; j < 16 && n + j < cout; ++j) d[j] = src[j];
     }
   }
-}
-
-// The first 1024-byte boundary at or above p, reached by an offset from p
-// so that the compiler keeps it in the shared window.
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-// ---- host: tensor maps
-
-// Returned by the entry points when a tensor map cannot be encoded.
-constexpr int kErrTensorMap = -1;
-
-// An int8 tensor map over `rank` dimensions (innermost first; `strides`
-// holds the byte strides of dimensions 1..rank-1), zero fill out of bounds.
-// cuTensorMapEncodeTiled comes from libcuda through the runtime's
-// cudaGetDriverEntryPointByVersion, so the library needs no -lcuda.
-// Returns 0 or kErrTensorMap.
-inline int encode_tiled(CUtensorMap* map, const void* base, int rank,
-                        const uint64_t* dims, const uint64_t* strides,
-                        const uint32_t* box, const uint32_t* elem_strides,
-                        int swizzle_bytes) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave,
-                              CUtensorMapSwizzle, CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return kErrTensorMap;
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  const CUtensorMapSwizzle swz =
-      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-      : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                            : CU_TENSOR_MAP_SWIZZLE_NONE;
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, static_cast<cuuint32_t>(rank),
-      const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
-      reinterpret_cast<const cuuint64_t*>(strides),
-      reinterpret_cast<const cuuint32_t*>(box),
-      reinterpret_cast<const cuuint32_t*>(elem_strides), CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
-}
-
-// Descriptor layout code of a K-major swizzled tile with rows of `bytes`.
-__host__ __device__ constexpr int swizzle_layout(int bytes) {
-  return bytes == 128 ? kSwizzle128 : bytes == 64 ? kSwizzle64 : kSwizzle32;
 }
 
 }  // namespace fvy

@@ -11,8 +11,9 @@ Nothing is downloaded and no prebuilt library is committed.
 Flags: `-fmad=false` and no `--use_fast_math`, so kernels keep IEEE
 division and uncontracted multiply-adds (the parity contract with the JAX
 reference, see csrc/nms_sweep.cu); the int8 epilogues write their fused
-multiply-adds explicitly (csrc/int8_mma.cuh). The int8 kernels' TMA tensor
-maps are encoded on the host with `cuTensorMapEncodeTiled`, which the CUDA
+multiply-adds explicitly (csrc/int8_mma.cuh). The TMA tensor maps of the
+int8 kernels and of the fused front are encoded on the host with
+`cuTensorMapEncodeTiled` (csrc/hopper.cuh), which the CUDA
 runtime hands over through `cudaGetDriverEntryPointByVersion`, so the link
 line needs no `-lcuda`.
 

@@ -16,7 +16,8 @@ stock bf16 path (darknet.apply_graph_folded) rounds each conv's sum to bf16
 before its bias add instead, so the two differ by a bf16 step on a few
 elements; the port's kernel and its twin follow `fused_front`.
 
-A CUDA tensor goes to the hand-written kernel in csrc/front_fused.cu, which
+A CUDA tensor goes to the hand-written kernel in csrc/front_fused.cu (a
+persistent, TMA-fed kernel: conv_0 on mma.sync, conv_1 on wgmma), which
 keeps conv_0's S²×32 output in shared memory; a CPU tensor to
 `fused_front_plain`. There is no fallback between the two.
 
@@ -36,6 +37,10 @@ import torch.nn.functional as F
 from face_vijnana_yolov3_tpu_torch.models import darknet
 
 C0, C1 = 32, 64  # conv_0 and conv_1 output channels (darknet.trunk_graph)
+# csrc/front_fused.cu walks B * ceil(S/16) * ceil(S/32) tiles with 32-bit
+# indices; it refuses batches above this (the grid limit of the kernel
+# before it was persistent).
+MAX_BATCH = 65535
 
 
 def _front_params(folded: dict):
@@ -75,11 +80,14 @@ def fused_front_plain(x: torch.Tensor, folded: dict, *,
 
 
 def front_kernel_weights(folded: dict):
-    """(w0 (32, 32) bf16, b0 (32,) f32, w1 (64, 288) bf16, b1 (64,) f32) in
-    the layout of csrc/front_fused.cu: output channel rows, K contiguous in
-    (dy, dx, cin) order; conv_0's K of 27 is padded with zeros to 32."""
+    """(w0 (32, 48) bf16, b0 (32,) f32, w1 (64, 288) bf16, b1 (64,) f32) in
+    the layout of csrc/front_fused.cu: output channel rows, K contiguous.
+    conv_0's K is 16 dy + 4 dx + cin: each kernel row dy is 4 pixels x 4
+    channels, the kernel's 3 pixels x 3 channels with zeros at dx = 3 and
+    cin = 3 (the 4-channel patch pixels its A rows read). conv_1's K is
+    (dy, dx, cin) = 32 (3 dy + dx) + cin."""
     k0, b0, k1, b1 = _front_params(folded)
-    w0 = F.pad(k0.permute(0, 2, 3, 1).reshape(C0, 27), (0, 5))
+    w0 = F.pad(k0.permute(0, 2, 3, 1), (0, 1, 0, 1)).reshape(C0, 48)  # (o, dy, dx4, c4)
     w1 = k1.permute(0, 2, 3, 1).reshape(C1, 9 * C0)
     return (w0.to(torch.bfloat16).contiguous(), b0.float().contiguous(),
             w1.to(torch.bfloat16).contiguous(), b1.float().contiguous())
@@ -108,6 +116,8 @@ def fused_front(x: torch.Tensor, folded: dict, *,
                          "CUDA device or the CPU")
     if any(t.data_ptr() % 16 for t in (x, *weights)):
         raise ValueError("fused_front: operands must be 16-byte aligned")
+    if b > MAX_BATCH:
+        raise ValueError(f"fused_front: batch {b} exceeds the kernel's {MAX_BATCH}")
     out = torch.empty((b, s // 2, s // 2, C1), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
@@ -118,6 +128,8 @@ def fused_front(x: torch.Tensor, folded: dict, *,
     with torch.cuda.device(x.device):
         rc = lib.fvy_front_fused(x.data_ptr(), *(t.data_ptr() for t in weights),
                                  out.data_ptr(), b, s, stream)
+    if rc == -1:
+        raise RuntimeError("fused_front: x's TMA tensor map could not be encoded")
     if rc != 0:
         raise RuntimeError(f"fused_front: kernel launch failed, CUDA error {rc}")
     fused_front.launches += 1

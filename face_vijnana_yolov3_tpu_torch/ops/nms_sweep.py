@@ -4,8 +4,9 @@
 nms_sweep_pallas: boxes sorted by descending score; row i with score > 0
 zeroes every later row j whose IoU(i, j) >= iou_th; NaN IoU never
 suppresses. A CUDA tensor goes to the hand-written kernel in
-csrc/nms_sweep.cu (one block per image, IoU computed in shared memory); a
-CPU tensor goes to `nms_sweep_reference`, the plain PyTorch version. There is
+csrc/nms_sweep.cu (one block per image: all warps build the suppression
+bitmask in shared memory, then one warp scans it word by word); a CPU
+tensor goes to `nms_sweep_reference`, the plain PyTorch version. There is
 no fallback between the two: a CUDA call that cannot build or launch raises.
 The threshold is rounded to f32 on every side (JAX and torch compare an f32
 tensor with a Python float in f32; the kernel takes a `float`).
@@ -17,7 +18,7 @@ import torch
 
 from face_vijnana_yolov3_tpu_torch.ops.boxes import pairwise_iou
 
-MAX_N = 1024  # csrc/nms_sweep.cu: kMaxN, the shared-memory capacity per block
+MAX_N = 1024  # csrc/nms_sweep.cu: kMaxN, 32 bitmask words a row
 
 
 def nms_sweep_reference(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
@@ -59,6 +60,8 @@ def nms_sweep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
         raise TypeError("nms_sweep: boxes and scores must be float32")
     if not (boxes_sorted.is_contiguous() and scores_sorted.is_contiguous()):
         raise ValueError("nms_sweep: boxes and scores must be contiguous")
+    if boxes_sorted.data_ptr() % 16:
+        raise ValueError("nms_sweep: boxes must be 16-byte aligned (one float4 a box)")
     if n > MAX_N:
         raise ValueError(f"nms_sweep: N={n} exceeds the kernel's {MAX_N}")
     if b == 0 or n == 0:

@@ -52,8 +52,8 @@ def weights():
     return jm, folded_s2d, folded_from_jax(folded_s2d)
 
 
-def _x(size, seed=1):
-    return np.random.default_rng(seed).uniform(0, 1, (2, size, size, 3)).astype(np.float32)
+def _x(size, seed=1, b=2):
+    return np.random.default_rng(seed).uniform(0, 1, (b, size, size, 3)).astype(np.float32)
 
 
 def _bf16_close(got, want):
@@ -143,12 +143,22 @@ def test_wrong_kernel_shapes_are_refused(weights):
         fused_front(torch.zeros(1, 64, 64, 3), folded)
 
 
-def _emulate_kernel(x, w0, b0, w1, b1, tr=8, tc=16):
-    """The tile walk of csrc/front_fused.cu in numpy, with its index math:
-    the bf16 input patch from rows 2*p0-2 and columns 2*q0-2 (zeros off the
-    image), conv_0 as patch gathers at `patch_offset(k)` against w0's
-    (dy, dx, cin) K order, the zero row/column -1, bf16 rounding, then
-    conv_1 from the tile at (2p + dy, 2q + dx) against w1."""
+def _emulate_kernel(x, w0, b0, w1, b1):
+    """csrc/front_fused.cu in numpy, with its index math. Per 8 x 16 tile
+    (p0, q0) of image n: the 19 x 36-pixel f32 patch from rows 2*p0-2 and
+    columns 2*q0-2, zeros off the image, taken as the kernel takes it (where
+    S % 4 == 0 the 116-float TMA box of the (B, S, 3S) tensor map at float
+    column 6*q0-12, pixel c at float 3c + 6, else pixel by pixel). Then each
+    warpgroup wg on its own: patch rows 8 wg .. 8 wg + 10 as bf16 4-channel
+    pixels Xb; conv_0 over its 9 x 33 positions m = 33 r + j in 5 chunks of
+    64 (clamped at 296), A row Xb[r + dy, j .. j + 3] (K = 16 dy + 4 dx +
+    cin), B from w0 staged as W0s[k / 8][n][k % 8] read at 2 planes a k16
+    step (the wgmma descriptor); the zero row/column -1, bf16 rounding into
+    its own Y split by column parity, Y[r][j & 1][cg][j >> 1][8]; conv_1 as
+    18 k16 steps, A rows from Y at row 2 wq + dy, parity dx & 1, u = q +
+    (dx >> 1), channel groups 2 half, 2 half + 1 (the ldmatrix addresses), B
+    from W1s[k / 8][n][k % 8]; output rows p0 + 4 wg + wq, masked to the
+    image."""
     def bf16(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             torch.bfloat16).float().numpy()
@@ -158,65 +168,90 @@ def _emulate_kernel(x, w0, b0, w1, b1, tr=8, tc=16):
 
     b, s = x.shape[0], x.shape[1]
     gs = s // 2
-    yr, yc, xr, xc = 2 * tr + 1, 2 * tc + 1, 2 * tr + 3, 2 * tc + 3
-    k = np.arange(32)
-    koff = np.where(k < 27, ((k // 9) * xc + (k // 3) % 3) * 3 + k % 3, -1)
-    m = np.arange(yr * yc)
-    base = ((m // yc) * xc + m % yc) * 3
-    w0f, w1f = w0.float().numpy(), w1.float().numpy()
+    w0s = w0.float().numpy().reshape(32, 6, 8).transpose(1, 0, 2)  # W0s planes
+    w1s = w1.float().numpy().reshape(64, 36, 8).transpose(1, 0, 2)  # W1s planes
+    w0b = np.concatenate([w0s[2 * dy:2 * dy + 2].transpose(1, 0, 2).reshape(32, 16)
+                          for dy in range(3)], axis=1)  # (32, 48): B of steps 0..2
+    m = np.minimum(np.arange(320), 296)
+    r_m, j_m = m // 33, m % 33
     out = np.zeros((b, gs, gs, 64), np.float32)
+    xflat = x.reshape(b, s, 3 * s)
+    wq, qq = np.arange(4)[:, None], np.arange(16)[None, :]
     for n in range(b):
-        for p0 in range(0, gs, tr):
-            for q0 in range(0, gs, tc):
-                patch = np.zeros((xr, xc, 3), np.float32)
-                r0, c0 = 2 * p0 - 2, 2 * q0 - 2
-                rs, cs = max(r0, 0), max(c0, 0)
-                re, ce = min(r0 + xr, s), min(c0 + xc, s)
-                patch[rs - r0:re - r0, cs - c0:ce - c0] = x[n, rs:re, cs:ce]
-                flat = bf16(patch).ravel()
-                a = flat[base[:, None] + np.where(koff < 0, 0, koff)[None, :]]
-                a[:, koff < 0] = 0.0
-                y = leaky(a @ w0f.T + b0)
-                y = y.reshape(yr, yc, 32)
-                if p0 == 0:
-                    y[0] = 0.0
-                if q0 == 0:
-                    y[:, 0] = 0.0
-                y = bf16(y)
-                for p in range(min(tr, gs - p0)):
-                    qn = min(tc, gs - q0)
-                    taps = [y[2 * p + dy, dx:dx + 2 * qn:2] for dy in range(3)
-                            for dx in range(3)]
-                    a1 = np.concatenate(taps, axis=1)  # (qn, 288), (dy, dx, cin)
-                    out[n, p0 + p, q0:q0 + qn] = bf16(leaky(a1 @ w1f.T + b1))
+        for p0 in range(0, gs, 8):
+            for q0 in range(0, gs, 16):
+                r0 = 2 * p0 - 2
+                rs, re = max(r0, 0), min(r0 + 19, s)
+                if s % 4 == 0:  # the TMA box, zero-filled out of bounds
+                    f0 = 6 * q0 - 12
+                    fs, fe = max(f0, 0), min(f0 + 116, 3 * s)
+                    patch = np.zeros((19, 116), np.float32)
+                    patch[rs - r0:re - r0, fs - f0:fe - f0] = xflat[n, rs:re, fs:fe]
+                    patch = patch[:, 6:114].reshape(19, 36, 3)
+                else:
+                    c0 = 2 * q0 - 2
+                    cs, ce = max(c0, 0), min(c0 + 36, s)
+                    patch = np.zeros((19, 36, 3), np.float32)
+                    patch[rs - r0:re - r0, cs - c0:ce - c0] = x[n, rs:re, cs:ce]
+                for wg in range(2):
+                    xb = np.zeros((11, 36, 4), np.float32)
+                    xb[..., :3] = bf16(patch[8 * wg:8 * wg + 11])
+                    a0 = np.concatenate(
+                        [xb[r_m[:, None] + dy, j_m[:, None] + np.arange(4)].reshape(320, 16)
+                         for dy in range(3)], axis=1)
+                    y = leaky(a0 @ w0b.T + b0)[:297]
+                    pad = (((p0 == 0) & (wg == 0)) & (r_m[:297] == 0)) | (
+                        (q0 == 0) & (j_m[:297] == 0))
+                    y[pad] = 0.0
+                    ys = np.zeros((9, 2, 4, 17, 8), np.float32)
+                    ys[r_m[:297], j_m[:297] & 1, :, j_m[:297] >> 1] = bf16(y).reshape(297, 4, 8)
+                    acc = np.zeros((4, 16, 64), np.float32)
+                    for dy in range(3):
+                        for dx in range(3):
+                            for half in range(2):
+                                step = 6 * dy + 2 * dx + half
+                                a1 = ys[(2 * wq + dy)[..., None], dx & 1,
+                                        2 * half + np.arange(2)[None, None, :],
+                                        (qq + (dx >> 1))[..., None]].reshape(4, 16, 16)
+                                bm = w1s[2 * step:2 * step + 2].transpose(1, 0, 2).reshape(64, 16)
+                                acc += a1 @ bm.T
+                    z = bf16(leaky(acc + b1))
+                    pr = p0 + 4 * wg
+                    pn, qn = min(4, gs - pr), min(16, gs - q0)
+                    if pn > 0:
+                        out[n, pr:pr + pn, q0:q0 + qn] = z[:pn, :qn]
     return out
 
 
-@pytest.mark.parametrize("size", [64, 36])
+@pytest.mark.parametrize("size", [64, 36, 50])
 def test_kernel_index_math_matches_the_plain_twin(weights, size):
-    """The CUDA kernel cannot run here: its tiling, patch offsets, weight
-    layout (front_kernel_weights) and zero padding, walked in numpy, must
-    give the plain twin's result (36²: ragged tiles on both axes). Same
-    bf16 tolerance: the sums run in another order."""
+    """The CUDA kernel cannot run here: its tiling, TMA box and the second
+    loader (50 % 4 == 2), patch layout, K orders, weight layouts
+    (front_kernel_weights) and zero padding, walked in numpy, must give the
+    plain twin's result (36², 50²: ragged tiles on both axes). Same bf16
+    tolerance: the sums run in another order."""
     _, _, folded = weights
     x = _x(size, seed=5)
     w0, b0, w1, b1 = front_kernel_weights(folded)
-    assert w0.shape == (32, 32) and w1.shape == (64, 288)
-    assert not w0[:, 27:].any()
+    assert w0.shape == (32, 48) and w1.shape == (64, 288)
+    w0r = w0.float().reshape(32, 3, 4, 4)
+    assert not w0r[:, :, 3].any() and not w0r[:, :, :, 3].any()
     got = _emulate_kernel(x, w0, b0.numpy(), w1, b1.numpy())
     want = fused_front_plain(torch.from_numpy(x), folded)
     _bf16_close(torch.from_numpy(got), want.float().numpy())
 
 
 def test_cuda_fused_front_matches_plain(weights):
-    """On the card: the kernel against its plain twin at 64² and 416² (the
-    bf16 tolerance above), and the launch counter moves."""
+    """On the card: the kernel against its plain twin (the bf16 tolerance
+    above) at 64², at 416² with b = 1 (fewer tiles than SMs), 8 and 32 (many
+    tiles a persistent block), 100² (ragged tiles) and 98² (S % 4 == 2: the
+    loader without TMA), and the launch counter moves."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (csrc/front_fused.cu)")
     folded = {k: {n: t.cuda() for n, t in v.items()} for k, v in weights[2].items()
               if k in ("conv_0", "conv_1")}
-    for size in (64, 416):
-        x = torch.from_numpy(_x(size, seed=6)).cuda()
+    for b, size in ((2, 64), (1, 416), (8, 416), (32, 416), (3, 100), (2, 98)):
+        x = torch.from_numpy(_x(size, seed=6, b=b)).cuda()
         before = fused_front.launches
         got = fused_front(x, folded)
         want = fused_front_plain(x, folded)

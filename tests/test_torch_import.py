@@ -27,7 +27,7 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 import face_vijnana_yolov3_tpu_torch
-from face_vijnana_yolov3_tpu_torch import kernels, profile_detect
+from face_vijnana_yolov3_tpu_torch import ablate_kernels, kernels, profile_detect
 from face_vijnana_yolov3_tpu_torch.api.config import FdConf
 from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipeline, main
 from face_vijnana_yolov3_tpu_torch.core import checkpoints, weights
