@@ -11,20 +11,23 @@ which raises on failure (exit code != 0):
 3. kernels  — each kernel vs its plain PyTorch version on the card,
               `torch.equal` required: the NMS sweep at B 1, 32, 128 x N 1,
               31, 32, 33, 169, 1024 (float, integer and degenerate boxes;
-              non-finite boxes, absent and tied scores at N=169);
+              non-finite boxes, absent and tied scores at N=169), and at B
+              1, 32 x N 1,025, 1,089, 1,600, 4,096 (every kind; the mask in
+              a device-memory workspace);
               conv_int8 at every conv_int8 shape of the int8 trunk at 416²
               (b=8 and b=1, with and without skip, k 1 and 3, stride 1 and
               2), at each (cin, cout, k, stride) on a ragged 11x19 input at
               b=3, plus rectangular inputs; block_int8 at the three residual
               stages (b=32 and b=1) and on 11x19 at b=3. The bf16 fused front
-              (fused_front) at 416² b=1, 8, 32, 100² (ragged tiles) and 98²
-              (the loader without TMA) within one bf16 step on at most 0.1 %
-              of the elements (FRONT_*). Then
+              (fused_front) at 416² b=1, 8, 32, 100² (ragged tiles), 98²
+              (the loader without TMA) and b=65,537 at 2² and 4², within
+              one bf16 step on at most 0.1 % of the elements (FRONT_*). Then
               each is timed with CUDA events at the main path's shapes (one
               416² trunk at b=32 for the int8 kernels, with the blocks on,
               and conv_int8 again over the 52 convs with them off, each call
               and its `_int_mm` yardstick as device time of a replayed CUDA
-              graph; the NMS sweep at B=128 and B=32 and the front at b=32
+              graph; the NMS sweep at B=128 and B=32 (and at N 1,089 and
+              1,600, B=32) and the front at b=32
               the same way, with per-call events beside them)
               beside its plain version, its bound and a library yardstick:
               one `torch._int_mm` per int8 GEMM (product only: the im2col
@@ -55,7 +58,20 @@ which raises on failure (exit code != 0):
               on), the trunk alone with the blocks on and off, calibration
               seconds, f32 detect_batch at b=8 and b=32, bf16 detect_batch
               at b=32 and b=128 at guard depths 2 and 0, and the bf16
-              forward at b=32 with the stock front and with the fused one.
+              forward at b=32 with the stock front and with the fused one;
+8. serve    — f32 test mode at image_size 1,056 (N = 1,089: the NMS mask in
+              a device-memory workspace) on the card and on the CPU, CSVs
+              compared (SERVE_*);
+9. calib    — msegrid calibration and PTQ bias correction at 416² on the
+              card vs the CPU port (CALIB_*);
+10. train   — one f32 train step at b2 416², card vs CPU port (STEP_*);
+              train_detector on a seeded synthetic set (TRAIN_*): f32 b32
+              through the CLI's mode=train (TF32 off), bf16 mixed at b32 and
+              b128, fake-quant QAT at b32, each loss falling; train_img_s
+              and peak memory (f32 b32, bf16 b128) with a profiler split of
+              a step; the trained checkpoint served at f32 and int8 (A0, A
+              and B must launch), evaluate + the mAP harness (AP printed,
+              not gated); which JPEG decoder the device-letterbox path ran.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -92,8 +108,9 @@ RAGGED_HW = (11, 19)  # ragged kernel checks at b=3
 TRUNK_B = 32  # int8 kernel timings: one trunk at this batch
 # fused_front vs plain: (batch, size); 416² at b1 (fewer tiles than SMs), b8
 # and b32 (many tiles a persistent block), 100² (ragged tiles), 98² (S % 4
-# == 2: the loader without TMA)
-FRONT_CHECKS = ((1, 416), (8, 416), (32, 416), (3, 100), (2, 98))
+# == 2: the loader without TMA), and a batch above 65,535 at the smallest S
+# (2, the loader without TMA) and the smallest TMA one (4)
+FRONT_CHECKS = ((1, 416), (8, 416), (32, 416), (3, 100), (2, 98), (65537, 2), (65537, 4))
 FRONT_B = 32  # fused_front timing and the bf16 detection program
 # Card vs CPU head: cuDNN and the CPU sum each conv in another order, and
 # cuDNN may pick Winograd/FFT algorithms for f32, whose rounding differs more.
@@ -120,6 +137,49 @@ BF16_HEAD_TOL = 2e-2
 # the host path's f64 pixels differs by up to 7e-5 at 1280 wide, in the JAX
 # package too: cv2 takes another coefficient path for 64F images.)
 LETTERBOX_TOL = 1e-5
+# nms_sweep above the shared-memory bound: N = (image_size / 32)^2 > 1024
+# from image_size 1,056 up; checked at every B x N, timed at NMS_TIMING_B2.
+NMS_LARGE_N = (1025, 1089, 1600, 4096)
+NMS_LARGE_B = (1, 32)
+NMS_LARGE_TIMED = (1089, 1600)
+# [serve]: f32 test mode at 1,056² on the card and the CPU. Scores: the
+# card's head is within HEAD_TOL of the CPU's, and score = sigmoid(h0) *
+# sigmoid(h5) moves at most 1/4 per unit of each logit. Boxes: a coordinate
+# is an integer pixel of a decoded head, so a head an ULP apart may cross a
+# pixel boundary on a few rows.
+SERVE_LARGE = 1056
+SERVE_SCORE_TOL = 0.5 * HEAD_TOL
+SERVE_BOX_EXACT = 0.98
+# [calib]: msegrid scales from f32 forwards on two devices (convs summed in
+# another order): the calibrations' rtol of tests/test_torch_quant.py. Bias
+# correction on the same scales: its means of (f32 - int8) differ by the f32
+# convs' rounding, and a requant that such a difference moves by one step
+# spreads through the later means: each conv's biases within a tenth of its
+# largest correction (H100 at 416², 2 images: 0.043, 1.2e-4 absolute).
+CALIB_IMAGES = 2
+CALIB_SCALE_RTOL = 1e-4
+CALIB_BIAS_FRACTION = 0.1
+# [train]: the seeded synthetic set at 416², runs (label, precision,
+# fake-quant, batch); b128 is the JAX package's train_img_s batch.
+TRAIN_IMAGES, VAL_IMAGES = 128, 32
+TRAIN_SOURCE_SIZE = 416  # the synthetic JPEGs' side (disks of radius 24-55)
+TRAIN_EPOCHS = 4
+TRAIN_LR = 1e-4  # FdHps.lr; 1e-3 overshoots in the first epochs from a random init
+TRAIN_RUNS = (("f32", "float32", False, 32), ("bf16", "bfloat16", False, 32),
+              ("bf16_b128", "bfloat16", False, 128), ("qat", "float32", True, 32))
+TRAIN_TIMING_STEPS = 8
+# train_img_s: (label, dtype, batch) in order; a label already timed is
+# skipped, so bf16 b64 runs only when b128 does not fit the card.
+TRAIN_TIMING_RUNS = (("f32", torch.float32, 32), ("bf16", torch.bfloat16, 128),
+                     ("bf16", torch.bfloat16, 64))
+# One f32 step, card vs CPU port: tests/test_torch_train.py's full-trunk
+# bounds (gradients 5e-3 of their norm, each param 0.1: BN over few
+# samples and leaky kinks), loss and BN statistics 1e-4 (cuDNN may pick
+# Winograd or FFT algorithms for f32 convs, whose rounding differs more).
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 5e-3
+STEP_PARAM_GRAD_TOL = 0.1
+STEP_STATE_TOL = 1e-4
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
@@ -758,6 +818,438 @@ def int8_slice(tmp, files, fdm, card, dev):
     return launches, fd0, calib_s
 
 
+# ------------------------------------------------------------------ new phases
+
+
+def check_nms_large(card, rng) -> dict:
+    """nms_sweep above the shared-memory bound (N > 1024, the mask in a
+    device-memory workspace): torch.equal with the plain version at
+    NMS_LARGE_B x NMS_LARGE_N x every case kind, then device and per-call
+    times at B=NMS_TIMING_B2 for NMS_LARGE_TIMED beside the plain version
+    and the bound. Returns {N: record} and the max |diff|."""
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import (
+        nms_sweep,
+        nms_sweep_reference,
+    )
+
+    kinds = ("float", "integer", "degenerate", "nonfinite", "absent", "ties")
+    cases = [(kind, b, n) for kind in kinds for b in NMS_LARGE_B for n in NMS_LARGE_N]
+    for kind, b, n in cases:
+        boxes, scores = sorted_case(kind, b, n, rng)
+        got = nms_sweep(boxes, scores, 0.5)
+        want = nms_sweep_reference(boxes, scores, 0.5)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"nms_sweep != plain version ({kind}, B={b}, N={n})")
+        del boxes, scores, got, want
+        torch.cuda.empty_cache()
+    print(f"[kernels] nms_sweep at N > 1024 (mask in a device-memory workspace): "
+          f"torch.equal with the plain version in all {len(cases)} cases (B "
+          f"{NMS_LARGE_B} x N {NMS_LARGE_N} x {'/'.join(kinds)})")
+    recs = {}
+    b = NMS_TIMING_B2
+    for n in NMS_LARGE_TIMED:
+        boxes, scores = sorted_case("integer", b, n, rng)
+        d_ms = graph_ms(lambda: nms_sweep(boxes, scores, 0.5))
+        k_ms = cuda_ms(lambda: nms_sweep(boxes, scores, 0.5), 20)
+        p_ms = cuda_ms(lambda: nms_sweep_reference(boxes, scores, 0.5), 3, warmup=1)
+        kept = nms_sweep(boxes, scores, 0.5) > 0
+        pairs = int((kept * (n - 1 - torch.arange(n, device=boxes.device))).sum())
+        b_ms, b_by = bound(b * n * (16 + 4 + 4), NMS_OPS_PER_PAIR * pairs
+                           + NMS_OPS_PER_BOX * b * n, PEAK_F32)
+        recs[n] = dict(ms=float(np.median(d_ms)), events_ms=float(np.median(k_ms)),
+                       plain_ms=float(np.median(p_ms)), bound_ms=b_ms, bound_by=b_by)
+        print(f"[kernels] nms_sweep B={b} N={n} (image_size {32 * int(n ** 0.5)}) on "
+              f"{card}: kernel {quartiles(d_ms)} on the device, {quartiles(k_ms)} a call "
+              f"between events; plain {quartiles(p_ms)}; bound {b_ms * 1e3:.3f} us by "
+              f"{b_by} ({pairs} IoU tests); {int(kept.sum())} rows kept")
+        del boxes, scores
+    return recs
+
+
+def serve_large(tmp, fdm, card, rng) -> int:
+    """f32 test mode at image_size SERVE_LARGE (N = 1,089 > 1,024) on the
+    card and on the CPU from one checkpoint: as many rows per image, each
+    card row with a CPU row within a pixel and SERVE_SCORE_TOL, the boxes
+    equal on SERVE_BOX_EXACT of them. Returns the nms_sweep launches."""
+    from face_vijnana_yolov3_tpu_torch.api.config import FdConf
+    from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.models import darknet
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+
+    d = os.path.join(tmp, "serve_large")
+    os.makedirs(d)
+    for i, (h, w) in enumerate([(1200, 1600), (1080, 1920), (1400, 1050), (1056, 1056)]):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(d, f"big_{i}.jpg"))
+    # Seeded BN statistics spread the scores, so the 60 rows an image keeps
+    # are not decided by ties that an ULP of the head reorders.
+    ckpt = os.path.join(tmp, "fd_large.pt")
+    model = FaceDetectorModel(image_size=SERVE_LARGE, device="cpu")
+    params, state = model.init_params(SEED)
+    darknet.perturb_batchnorm(params, state, model.ops, SEED + 1)
+    save_checkpoint(ckpt, params_from_jax(params, state))
+    out = {}
+    for device in ("cuda", "cpu"):
+        conf = FdConf(mode="test", test_path=d, model_loading=True, model_path=ckpt,
+                      output_file_path=os.path.join(tmp, f"large_{device}.csv"))
+        conf.nn_arch.image_size = SERVE_LARGE
+        conf.hps.face_conf_th, conf.hps.batch_size = 0.05, 2
+        if device == "cuda":  # the path whose kernel launches count
+            nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        fdm.FaceDetectorPipeline(conf, device=device).test()
+        torch.cuda.synchronize()
+        out[device] = (open(conf.output_file_path).read().splitlines(),
+                       time.perf_counter() - t0)
+        if device == "cuda":
+            launches = nms_sweep.launches
+    per_image = {}
+    for device, (lines, _) in out.items():
+        for line in lines:
+            f = line.split(",")
+            per_image.setdefault(f[0], {}).setdefault(device, []).append(
+                [float(v) for v in f[1:]])
+    n_rows = len(out["cpu"][0])
+    exact = matched = 0
+    worst_px = worst_score = 0.0
+    for name, rows in per_image.items():
+        card_rows, cpu_rows = rows.get("cuda", []), list(rows.get("cpu", []))
+        if len(card_rows) != len(cpu_rows):
+            raise AssertionError(f"[serve] {SERVE_LARGE}² {name}: {len(card_rows)} rows "
+                                 f"on the card, {len(cpu_rows)} on the CPU")
+        for r in card_rows:  # the CPU row closest to each card row
+            d = [np.abs(np.asarray(r) - np.asarray(c)) for c in cpu_rows]
+            k = int(np.argmin([max(x[:4].max(), x[4] / SERVE_SCORE_TOL) for x in d]))
+            if d[k][:4].max() <= 1 and d[k][4] <= SERVE_SCORE_TOL:
+                matched += 1
+                exact += int((d[k][:4] == 0).all())
+                worst_px = max(worst_px, float(d[k][:4].max()))
+                worst_score = max(worst_score, float(d[k][4]))
+                cpu_rows.pop(k)
+    print(f"[serve] f32 test mode at {SERVE_LARGE}² (N = {(SERVE_LARGE // 32) ** 2}), 4 "
+          f"JPEGs, batch 2, on {card}: {n_rows} rows on both; {matched} card rows have a "
+          f"CPU row within 1 px and {SERVE_SCORE_TOL} (tol: all), {exact} of them with "
+          f"the box equal (tol: >= {SERVE_BOX_EXACT:.0%}); worst {worst_px:g} px, "
+          f"{worst_score:.3g} in score; nms_sweep launches {launches}; card "
+          f"{out['cuda'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s")
+    if not (n_rows and matched == n_rows and exact >= SERVE_BOX_EXACT * n_rows
+            and launches > 0):
+        raise AssertionError(f"[serve] the card's {SERVE_LARGE}² CSV disagrees with the CPU's")
+    return launches
+
+
+def calib_phase(card, dev, rng):
+    """int8 calibration on the card vs the CPU port: msegrid scales (rtol
+    CALIB_SCALE_RTOL: each position's max comes from f32 forwards whose
+    convs sum in another order), then bias correction on the CPU's msegrid
+    scales: kernel_q and w_scale bit-identical, biases within
+    CALIB_BIAS_FRACTION of each conv's largest correction."""
+    from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
+    from face_vijnana_yolov3_tpu_torch.models import darknet, quant
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+
+    model = FaceDetectorModel(image_size=IMAGE_SIZE, device="cpu")
+    params, state = model.init_params(SEED + 2)
+    darknet.perturb_batchnorm(params, state, model.ops, SEED + 3)
+    model.load_state_dict(params_from_jax(params, state))
+    folded_cpu = model.fold()
+    folded_dev = {k: {n: t.to(dev) for n, t in v.items()} for k, v in folded_cpu.items()}
+    x = rng.uniform(0, 1, (CALIB_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    ops = model.ops
+    t0 = time.perf_counter()
+    s_dev = quant.calibrate_folded(folded_dev, torch.from_numpy(x).to(dev), ops,
+                                   percentile="msegrid")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_cpu = quant.calibrate_folded(folded_cpu, torch.from_numpy(x), ops, percentile="msegrid")
+    cpu_s = time.perf_counter() - t0
+    rel = max(float(np.abs(a / b - 1).max()) for a, b in zip(s_dev, s_cpu))
+    same = sum(int((a == b).sum()) for a, b in zip(s_dev, s_cpu))
+    total = sum(b.size for b in s_cpu)
+    print(f"[calib] msegrid scales, {CALIB_IMAGES} images at {IMAGE_SIZE}², card vs CPU: "
+          f"{same} of {total} channels bit-identical, max rel diff {rel:.3g} (tol "
+          f"{CALIB_SCALE_RTOL}); card {dev_s:.2f} s on {card}, CPU {cpu_s:.1f} s")
+    if rel > CALIB_SCALE_RTOL:
+        raise AssertionError("[calib] msegrid scales differ between card and CPU")
+    t0 = time.perf_counter()
+    q_dev = quant.quantize_folded(folded_dev, torch.from_numpy(x).to(dev), ops,
+                                  act_scales=s_cpu, bias_correct=True)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    q_cpu = quant.quantize_folded(folded_cpu, torch.from_numpy(x), ops, act_scales=s_cpu,
+                                  bias_correct=True)
+    q_plain = quant.quantize_folded(folded_cpu, None, ops, act_scales=s_cpu)
+    worst_abs, worst_rel = 0.0, 0.0
+    for op in ops:
+        if op[0] != "conv":
+            continue
+        k = f"conv_{op[1]}"
+        if not (torch.equal(q_dev[k]["kernel_q"], q_cpu[k]["kernel_q"])
+                and torch.equal(q_dev[k]["w_scale"], q_cpu[k]["w_scale"])):
+            raise AssertionError(f"[calib] {k}: kernel_q or w_scale differ card vs CPU")
+        diff = float((q_dev[k]["bias"] - q_cpu[k]["bias"]).abs().max())
+        corr = float((q_cpu[k]["bias"] - q_plain[k]["bias"]).abs().max())
+        worst_abs = max(worst_abs, diff)
+        worst_rel = max(worst_rel, diff / max(corr, 1e-30))
+    print(f"[calib] bias correction on the same scales, card vs CPU: kernel_q and "
+          f"w_scale bit-identical; biases max |diff| {worst_abs:.3g}, at most "
+          f"{worst_rel:.3g} of the conv's largest correction (tol "
+          f"{CALIB_BIAS_FRACTION}); card {dev_s:.2f} s")
+    if worst_rel > CALIB_BIAS_FRACTION:
+        raise AssertionError("[calib] bias-corrected biases differ between card and CPU")
+
+
+def profile_split(fn, steps: int) -> dict:
+    """Device ms a call of `fn` by kernel family (torch.profiler over
+    `steps` calls): convolutions (cuDNN and GEMM kernels), reductions (BN
+    statistics and their gradients), the optimizer's foreach kernels, the
+    other elementwise passes, and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    split = collections.Counter()
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if not t or ev.key.startswith(("ProfilerStep", "cuda", "aten::")):
+            continue
+        name = ev.key.lower()
+        if any(s in name for s in ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
+                                   "winograd", "fft", "implicit", "sm90_", "sm80_")):
+            split["convs"] += t
+        elif "multi_tensor" in name or "foreach" in name:
+            split["optimizer"] += t
+        elif "reduce" in name:
+            split["reductions (BN)"] += t
+        elif "elementwise" in name or "vectorized" in name or "unrolled" in name:
+            split["elementwise"] += t
+        else:
+            split["other"] += t
+    return {k: v / 1e3 / steps for k, v in split.items()}
+
+
+def train_phase(tmp, fdm, card, dev):
+    """Detector training on the card: one f32 step at b2 vs the CPU port,
+    then train_detector on the seeded synthetic set at 416² (f32 through
+    the CLI's mode=train, bf16 mixed at two batches, fake-quant QAT),
+    train_img_s and peak memory, the trained checkpoint served at f32 and
+    int8 (A0, A and B must launch), evaluate + the mAP harness. Returns
+    {label: (img/s, batch, peak GB)} and the serving launch counts."""
+    from face_vijnana_yolov3_tpu_torch.api.config import FdConf
+    from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import load_train_meta
+    from face_vijnana_yolov3_tpu_torch.data import synthetic
+    from face_vijnana_yolov3_tpu_torch.data.uccs import DetectionDataset
+    from face_vijnana_yolov3_tpu_torch.evals.detection import map_sweep
+    from face_vijnana_yolov3_tpu_torch.models import darknet
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_int8
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+    from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+
+    root = synthetic.make_dataset(os.path.join(tmp, "synthetic"), n_train=TRAIN_IMAGES,
+                                  n_val=VAL_IMAGES, image_size=TRAIN_SOURCE_SIZE, seed=SEED)
+    ds = DetectionDataset(root, image_size=IMAGE_SIZE, grid=IMAGE_SIZE // 32,
+                          cache="samples")
+
+    # One f32 step at b2: the card vs the CPU port, same weights and batch.
+    model_cpu = FaceDetectorModel(image_size=IMAGE_SIZE, device="cpu")
+    sd = params_from_jax(*model_cpu.init_params(SEED + 4))
+    model_dev = FaceDetectorModel(image_size=IMAGE_SIZE, device=dev)
+    images, gts = ds.batch(0, 2)
+    w = np.ones(2, np.float32)
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, model, device in (("card", model_dev, dev), ("cpu", model_cpu, "cpu")):
+        p, s = darknet.split_state_dict({k: v.to(device) for k, v in sd.items()})
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        pred, new_state = model.apply_train(leaves, s, torch.from_numpy(images).to(device))
+        per = torch.mean(torch.square(pred - torch.from_numpy(gts).to(device)), dim=(1, 2, 3))
+        loss = torch.sum(per * torch.from_numpy(w).to(device)) / float(w.sum())
+        loss.backward()
+        opt = optimizer.KerasAdam(TRAIN_LR)
+        upd, _ = opt.update({k: v.grad for k, v in leaves.items()}, opt.init(p))
+        res[name] = dict(loss=float(loss.detach()),
+                         grads={k: v.grad.detach().cpu() for k, v in leaves.items()},
+                         state={k: v.cpu() for k, v in new_state.items()},
+                         params={k: (p[k] + upd[k]).cpu() for k in p})
+    c, h = res["card"], res["cpu"]
+    loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+    g_tot = sum(float(g.norm()) ** 2 for g in h["grads"].values()) ** 0.5
+    g_diff = sum(float((c["grads"][k] - g).norm()) ** 2 for k, g in h["grads"].items()) ** 0.5
+    g_worst = max(float((c["grads"][k] - g).norm() / g.norm()) for k, g in h["grads"].items())
+    s_err = max(float((c["state"][k] - v).abs().max() / v.abs().max())
+                for k, v in h["state"].items())
+    p_diff = torch.cat([(c["params"][k] - v).abs().flatten() for k, v in h["params"].items()])
+    p_max, p_moved = float(p_diff.max()), float((p_diff > 1e-3 * TRAIN_LR).float().mean())
+    print(f"[train] one f32 step at b2 {IMAGE_SIZE}², card vs CPU port on {card}: loss "
+          f"{c['loss']:.6f} vs {h['loss']:.6f} (rel {loss_rel:.2g}, tol {STEP_LOSS_RTOL}); "
+          f"grads {g_diff / g_tot:.2g} of their norm (tol {STEP_GRAD_TOL}), worst param "
+          f"{g_worst:.2g} (tol {STEP_PARAM_GRAD_TOL}); BN statistics {s_err:.2g} (tol "
+          f"{STEP_STATE_TOL}); updated params max |diff| {p_max:.3g} (tol {2 * TRAIN_LR}), "
+          f"{p_moved:.3%} of them beyond {1e-3 * TRAIN_LR:g} (tol 1%)")
+    if not (loss_rel <= STEP_LOSS_RTOL and g_diff <= STEP_GRAD_TOL * g_tot
+            and g_worst <= STEP_PARAM_GRAD_TOL and s_err <= STEP_STATE_TOL
+            and p_max <= 2 * TRAIN_LR and p_moved <= 0.01):
+        raise AssertionError("[train] the card's f32 step disagrees with the CPU port's")
+    del res, model_cpu, c, h
+    torch.cuda.empty_cache()
+
+    # train_detector: f32 through the CLI (mode=train), then bf16 and QAT.
+    ckpts = {}
+    for label, precision, qat, b in TRAIN_RUNS:
+        ckpt = os.path.join(tmp, f"trained_{label}.pt")
+        overrides = {"mode": "train", "raw_data_path": root, "model_path": ckpt,
+                     "weights_path": "none.weights", "train_qat": qat,
+                     "hps": {"batch_size": b, "epochs": TRAIN_EPOCHS, "lr": TRAIN_LR},
+                     "nn_arch": {"image_size": IMAGE_SIZE}}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            if precision == "float32" and not qat:
+                path = os.path.join(tmp, f"conf_{label}.json")
+                with open(path, "w") as f:
+                    json.dump({"fd_conf": overrides}, f)
+                fdm.main([f"--conf={path}"])
+            else:
+                conf = FdConf(**{k: v for k, v in overrides.items()
+                                 if k not in ("hps", "nn_arch")})
+                conf.nn_arch.image_size = IMAGE_SIZE
+                for k, v in overrides["hps"].items():
+                    setattr(conf.hps, k, v)
+                fdm.FaceDetectorPipeline(conf, precision=precision).train()
+        except torch.cuda.OutOfMemoryError:
+            print(f"[train] {label}: b={b} does not fit in {card} "
+                  f"({torch.cuda.max_memory_allocated() / 2**30:.1f} GiB allocated at "
+                  f"the failure)")
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = [json.loads(line)["loss"] for line in open(ckpt + "_history.jsonl")]
+        steps = len(hist) // TRAIN_EPOCHS
+        first, last = np.mean(hist[:steps]), np.mean(hist[-steps:])
+        print(f"[train] {label} ({precision}{', fake-quant' if qat else ''}) b={b}, "
+              f"{TRAIN_EPOCHS} epochs of {steps} steps on {TRAIN_IMAGES} synthetic "
+              f"images, {card}: epoch mean loss {first:.5f} -> {last:.5f}; {wall:.1f} s "
+              f"with finalize_bn_stats and the save; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if not (np.isfinite(hist).all() and last < first):
+            raise AssertionError(f"[train] {label}: loss did not fall ({first} -> {last})")
+        ckpts[label] = ckpt
+
+    # train_img_s: the train step on device-resident batches, events over
+    # TRAIN_TIMING_STEPS steps after two warm-up steps.
+    rates = {}
+    model = FaceDetectorModel(image_size=IMAGE_SIZE, device=dev)
+    for label, dtype, b in TRAIN_TIMING_RUNS:
+        if label in rates:
+            continue
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p, s = darknet.split_state_dict({k: v.to(dev) for k, v in sd.items()})
+        opt = optimizer.KerasAdam(TRAIN_LR)
+        step = trainer.make_train_step(model, opt, compute_dtype=dtype)
+        images, gts = ds.batch(0, len(ds))
+        reps = -(-b // len(ds))
+        xs = torch.from_numpy(np.concatenate([images] * reps)[:b]).to(dev).to(dtype)
+        ys = torch.from_numpy(np.concatenate([gts] * reps)[:b]).to(dev)
+        ws = torch.ones(b, device=dev)
+        carry = [p, s, opt.init(p)]
+
+        def run():
+            carry[0], carry[1], carry[2], _ = step(*carry, xs, ys, ws)
+
+        try:
+            ms = cuda_ms(run, TRAIN_TIMING_STEPS, warmup=2)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[train] train step {label} b={b} does not fit in {card}; timing a "
+                  f"smaller batch")
+            del carry, xs, ys
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        split = profile_split(run, 2)
+        rates[label] = (b / (np.median(ms) / 1e3), b, peak)
+        split_txt = ", ".join(f"{k} {v:.1f}" for k, v in sorted(split.items(),
+                                                              key=lambda kv: -kv[1]))
+        print(f"[train] train_img_s {label} b={b} at {IMAGE_SIZE}² on {card}: "
+              f"{rates[label][0]:.1f} img/s; step {quartiles(ms)}; peak "
+              f"{peak:.1f} GiB (max_memory_allocated); device ms a step by kernel "
+              f"family: {split_txt} (sum {sum(split.values()):.1f})")
+        del carry, xs, ys, step
+    torch.cuda.empty_cache()
+
+    # The trained f32 checkpoint (finalize_bn_stats ran, trainmeta saved)
+    # served at f32 and int8, then evaluate + the mAP harness.
+    ckpt = ckpts["f32"]
+    files = [f for f in os.listdir(root) if f.endswith(".jpg")]
+    launches = {}
+    for precision in ("float32", "int8"):
+        conf = FdConf(mode="test", test_path=root, model_loading=True, model_path=ckpt,
+                      output_file_path=os.path.join(tmp, f"trained_{precision}.csv"),
+                      int8_pallas_blocks=True)
+        conf.nn_arch.image_size = IMAGE_SIZE
+        conf.hps.batch_size, conf.hps.face_conf_th = 32, 0.05
+        conv_int8.launches = block_int8.launches = nms_sweep.launches = 0
+        fd = fdm.FaceDetectorPipeline(conf, precision=precision)
+        fd.test()
+        torch.cuda.synchronize()
+        launches[precision] = {"conv_int8": conv_int8.launches,
+                               "block_int8": block_int8.launches,
+                               "nms_sweep": nms_sweep.launches}
+        summary = check_csv(conf.output_file_path, len(files), precision)
+        print(f"[train] the trained checkpoint served at {precision} (test mode, "
+              f"{len(files)} images): {summary}; launches {launches[precision]}")
+        need = (("conv_int8", "block_int8", "nms_sweep") if precision == "int8"
+                else ("nms_sweep",))
+        if min(launches[precision][k] for k in need) == 0:
+            raise AssertionError(f"[train] serving the trained checkpoint at {precision} "
+                                 f"skipped a kernel: {launches[precision]}")
+    print(f"[train] trainmeta of the trained checkpoint: {load_train_meta(ckpt)}; "
+          f"QAT one: {load_train_meta(ckpts['qat'])}")
+    conf = FdConf(mode="evaluate", test_path=root, model_loading=True, model_path=ckpt,
+                  output_file_path=os.path.join(tmp, "trained_eval.csv"))
+    conf.nn_arch.image_size = IMAGE_SIZE
+    conf.hps.batch_size, conf.hps.face_conf_th = 32, 0.05
+    cwd = os.getcwd()
+    os.chdir(tmp)  # evaluate writes ratios.csv to the working directory
+    try:
+        fdm.FaceDetectorPipeline(conf).evaluate()
+    finally:
+        os.chdir(cwd)
+    val = os.path.join(tmp, "trained_val.csv")
+    with open(val, "w") as f:
+        f.writelines(r + "\n" for r in open(conf.output_file_path).read().splitlines()
+                     if r.startswith("val_"))
+    _, _, aps = map_sweep(os.path.join(root, "validation.csv"), val, out_h5=None)
+    print(f"[train] evaluate + the mAP harness on the {VAL_IMAGES} held-out images "
+          f"(not gated: {TRAIN_EPOCHS} epochs on {TRAIN_IMAGES} synthetic images): AP50 "
+          f"{aps[0]:.4f}, AP50:95 {np.mean(aps):.4f}")
+
+    # Which JPEG decoder the device-letterbox path ran.
+    os.environ["FVY_DEVICE_LETTERBOX"] = "1"
+    try:
+        conf = FdConf(mode="test", test_path=root, model_loading=True, model_path=ckpt,
+                      output_file_path=os.path.join(tmp, "trained_native.csv"))
+        conf.nn_arch.image_size = IMAGE_SIZE
+        conf.hps.batch_size, conf.hps.face_conf_th = 32, 0.05
+        fd = fdm.FaceDetectorPipeline(conf)
+        fd.test()
+    finally:
+        del os.environ["FVY_DEVICE_LETTERBOX"]
+    print(f"[train] JPEG decoder of the device-letterbox path: {fd.jpeg_decoder} "
+          f"({check_csv(conf.output_file_path, len(files), 'native')})")
+    return rates, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -794,6 +1286,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
     t_start = time.perf_counter()
+    fdm.DEBUG = False  # no per-image progress lines from evaluate/test
 
     # 1. device
     card = nvidia_smi()
@@ -853,6 +1346,7 @@ def main() -> int:
               f"on the device, {quartiles(k_ms)} a call between events (host launch "
               f"included); plain {quartiles(p_ms)}; bound {nms_bound * 1e3:.3f} us by "
               f"{nms_bound_by} ({pairs} IoU tests); {int(kept.sum())} rows kept")
+    nms_large = check_nms_large(card, rng)
     ops = darknet.trunk_graph()
     int8_err = check_int8_kernels(ops, rng)
     int8_rec = time_int8_kernels(ops, card, rng)
@@ -1016,7 +1510,19 @@ def main() -> int:
           f"{quartiles(fused_ms)}")
     del xd
     print(f"[timing] int8 calibration (32 images, one candidate) {calib_s:.2f} s; "
-          f"total run {time.perf_counter() - t_start:.0f} s")
+          f"done at {time.perf_counter() - t_start:.0f} s")
+    del fd, fd8, fdb
+    torch.cuda.empty_cache()
+
+    # 8-10. serving above N = 1024, calibration, training
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_large(tmp, fdm, card, rng)
+        print(f"[serve] done at {time.perf_counter() - t_start:.0f} s")
+        calib_phase(card, dev, rng)
+        print(f"[calib] done at {time.perf_counter() - t_start:.0f} s")
+        train_rates, train_launches = train_phase(tmp, fdm, card, dev)
+        print(f"[train] done at {time.perf_counter() - t_start:.0f} s; total run "
+              f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
     kernel_lines = [{
@@ -1033,6 +1539,8 @@ def main() -> int:
         "library_ms": None,
         "events_ms": nms["events_ms"],
         f"ms_b{NMS_TIMING_B2}": nms_rec[NMS_TIMING_B2]["ms"],
+        **{f"{key}_n{n}_b{NMS_TIMING_B2}": rec[key] for n, rec in nms_large.items()
+           for key in ("ms", "events_ms", "plain_ms", "bound_ms")},
     }]
     off = int8_rec["conv_int8 blocks off"]
     for name, src, replaces, rec, n, err in (
@@ -1058,6 +1566,9 @@ def main() -> int:
                 ms_blocks_off=off["ms"], plain_ms_blocks_off=off["plain_ms"],
                 bound_ms_blocks_off=off["bound_ms"],
                 library_ms_blocks_off=off["library_ms"])
+    print(json.dumps({"train_img_s": {k: {"img_s": v[0], "batch": v[1], "peak_gib": v[2]}
+                                      for k, v in train_rates.items()},
+                      "trained_serving_launches": train_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
-"""Face detection serving entry point: evaluate / test, config-JSON driven.
+"""Face detection entry point: train / evaluate / test, config-JSON driven.
 
-Port of the f32, bf16 and int8 serving paths of
-face_vijnana_yolov3_tpu/api/face_detection.py (FaceDetectorPipeline,
-`main`): the same `solution_fd.csv` rows `file,x,y,w,h,score` (at most 60
+Port of face_vijnana_yolov3_tpu/api/face_detection.py (FaceDetectorPipeline,
+`main`): detector training (`train`, `fd_conf.mode=train`: f32, bf16 mixed
+precision, fake-quant QAT; train/trainer.py) and f32, bf16 and int8 serving
+with the same `solution_fd.csv` rows `file,x,y,w,h,score` (at most 60
 per image), annotated JPEGs in `<test_path>/results/` and `ratios.csv` in
 evaluate mode. Everything runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card the default raises.
 
     python -m face_vijnana_yolov3_tpu_torch.api.face_detection --conf=CONF.json \
-        [fd_conf.mode=test] [--set fd_conf.hps.batch_size=8]
+        [fd_conf.mode=train|evaluate|test] [--set fd_conf.hps.batch_size=8]
 
 Each batch runs letterbox (host cv2, or the two-matmul device letterbox of
 `detect_batch_fused`), the trunk and head (models/detector.py) and the
@@ -25,11 +26,19 @@ the first batch by `autoselect_bf16_front`). Like the JAX pipeline, it
 serves the stock front; the fused front kernel (ops/front_fused.py) is
 reached through `apply_graph_folded_front`.
 
-Not carried yet (ROADMAP.md queue 1): the msegrid calibrator, PTQ bias
-correction and distillation QAT, training, the legacy `--mode` argparse
-CLI, Keras-h5 and Orbax weights, the native JPEG loader and its scaled
-decode. `bf16_front_mode="int8"` is refused: it is not carried (measured
-harmful in the JAX package). Deliberate divergence: eager PyTorch has no
+Weights: a `.pt` checkpoint (model_loading), the reference's Keras h5
+(`model_path` ending in .h5/.hd5, core/keras_import.py), the cached trunk
+`yolov3_base.h5` (yolov3_base_model_load), darknet `yolov3.weights` (then
+cached as yolov3_base.h5, as the reference does), or a seeded random trunk.
+With `FVY_DEVICE_LETTERBOX=1`, JPEGs decode through the native batched
+loader (data/native_loader.py, libjpeg) straight into the uint8 staging
+buffer when it builds, else through PIL; `FVY_JPEG_SCALED_DECODE=1` decodes
+at a reduced DCT scale (test mode: not bit-exact with a full decode).
+
+Not carried: the legacy `--mode` argparse CLI (ROADMAP.md queue 1 item
+10); distillation QAT (`int8_qat_steps`) and `bf16_front_mode="int8"`, both
+measured harmful in the JAX package (ROADMAP.md, code the port should not
+carry). Deliberate divergence: eager PyTorch has no
 per-shape compile to amortise, so `detect_batch_fused` does not pad staged
 buffers to 128-multiples or chunks to a fixed batch as the JAX jit does;
 results are unchanged by that padding.
@@ -53,12 +62,17 @@ from face_vijnana_yolov3_tpu_torch.api.config import (
 )
 from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
 from face_vijnana_yolov3_tpu_torch.core.checkpoints import (
+    KERAS_SUFFIXES,
     load_checkpoint,
+    load_opt_state,
     load_train_meta,
 )
 from face_vijnana_yolov3_tpu_torch.data.pipeline import prefetch_batches
 from face_vijnana_yolov3_tpu_torch.models import quant
-from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+from face_vijnana_yolov3_tpu_torch.models.detector import (
+    FaceDetectorModel,
+    init_head_params,
+)
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import (
     letterbox_geometry,
     letterbox_host,
@@ -100,15 +114,10 @@ class FaceDetectorPipeline:
                 "port should not carry)")
         if precision == "int8":
             if getattr(conf, "int8_qat_steps", 0):
-                raise NotImplementedError(f"int8_qat_steps > 0: distillation "
-                                          f"QAT is {quant.NOT_PORTED}")
-            if getattr(conf, "int8_bias_correct", False):
-                raise NotImplementedError(f"int8_bias_correct: bias correction "
-                                          f"is {quant.NOT_PORTED}")
-            pct = getattr(conf, "int8_calib_percentile", None)
-            if isinstance(pct, str) and pct != "auto":
-                raise NotImplementedError(f"int8_calib_percentile={pct!r}: the "
-                                          f"msegrid calibrator is {quant.NOT_PORTED}")
+                raise NotImplementedError(
+                    "int8_qat_steps > 0: distillation QAT is not carried into "
+                    "the port: it measured below every PTQ row in the JAX "
+                    "package (ROADMAP.md, code the port should not carry)")
         elif precision not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"precision={precision!r}: the port serves float32, bfloat16 "
@@ -136,17 +145,34 @@ class FaceDetectorPipeline:
         # measured at release time (None = no pin).
         self._ckpt_qat = False
         self._ckpt_int8_tail = None
+        self.opt_state = None  # Adam state of a resumed training run
         if conf.model_loading:
             sd = load_checkpoint(conf.model_path)
-            tm = load_train_meta(conf.model_path)
-            self._ckpt_qat = bool(tm.get("qat", False))
-            self._ckpt_int8_tail = tm.get("int8_tail")
+            if not conf.model_path.endswith(KERAS_SUFFIXES):
+                self.opt_state = load_opt_state(conf.model_path)
+                tm = load_train_meta(conf.model_path)
+                self._ckpt_qat = bool(tm.get("qat", False))
+                self._ckpt_int8_tail = tm.get("int8_tail")
         elif conf.yolov3_base_model_load and os.path.exists("yolov3_base.h5"):
-            raise NotImplementedError(
-                "yolov3_base.h5 is a Keras h5 trunk cache; Keras-h5 import is "
-                "ROADMAP.md queue 1 item 1")
+            # The reference's cached trunk (face_detection.py:393-396), a
+            # fresh head.
+            from face_vijnana_yolov3_tpu_torch.core.keras_import import (
+                collect_keras_weights,
+                trunk_from_keras,
+            )
+
+            sd = trunk_from_keras(collect_keras_weights("yolov3_base.h5"))
+            sd.update(params_from_jax(
+                {"head": init_head_params(1, self.model.out_channels)}, {}))
         elif os.path.exists(conf.weights_path):
             sd = self.model.init_from_darknet(conf.weights_path, seed=0)
+            # As the reference: cache the built trunk so the next run with
+            # yolov3_base_model_load skips the darknet parse.
+            from face_vijnana_yolov3_tpu_torch.core.keras_import import (
+                save_trunk_keras_h5,
+            )
+
+            save_trunk_keras_h5(sd, "yolov3_base.h5")
         else:
             # The reference hard-requires yolov3.weights; a fresh random trunk
             # keeps the pipeline runnable in weightless environments (tests).
@@ -201,6 +227,7 @@ class FaceDetectorPipeline:
                 tails = (0, 2, 4, 5, 6, 8)
             q, tail, err = quant.quantize_autotail(
                 self.model, folded, x[:32], percentile=percentile, tails=tails,
+                bias_correct=bool(getattr(self.conf, "int8_bias_correct", False)),
                 scorer=quant.detection_box_f1_scorer(self._pp_cfg, self.device))
             self._qparams = quant.to_device(q, self.device)
             self.int8_tail_chosen = tail
@@ -209,9 +236,15 @@ class FaceDetectorPipeline:
                 print(f"[calibrate_int8] self-check 1-boxF1 {err:.4f} over "
                       f"threshold — serving with bf16 tail {tail}")
             return
+        # Bias correction is off after distillation QAT (not carried here) and
+        # with bf16 islands (its walk models an all-int8 program), as in the
+        # JAX package.
+        bias_correct = (not getattr(self.conf, "int8_qat_steps", 0) and not bf16_ops
+                        and bool(getattr(self.conf, "int8_bias_correct", False)))
         self._qparams = quant.to_device(
             self.model.quantize(folded, x[:16], percentile=percentile,
-                                bf16_tail_blocks=tail_cfg, bf16_ops=bf16_ops),
+                                bf16_tail_blocks=tail_cfg, bf16_ops=bf16_ops,
+                                bias_correct=bias_correct),
             self.device)
         self.int8_tail_chosen = tail_cfg
 
@@ -336,17 +369,75 @@ class FaceDetectorPipeline:
             )
         return out
 
+    # -------------------------------------------------------------- train
+
+    def train(self):
+        """Train the detector on `conf.raw_data_path`'s training.csv
+        (api/face_detection.py:488-541 of the JAX package) on this
+        pipeline's device; returns the per-step losses.
+
+        precision "bfloat16" trains in mixed precision (bf16 convs, f32 BN
+        statistics, loss, master params and Adam); "float32" and "int8"
+        train in f32 (int8 is a serving mode). conf.train_qat trains with
+        int8 fake-quant, conf.checkpoint_every saves every N epochs,
+        conf.dataset_cache is DetectionDataset's cache. A Keras-style
+        model_path (.h5/.hd5, the reference's face_detector.h5) trains
+        against a sibling `<model_path>.pt` and exports the h5 at the end.
+        The folded and int8 programs of the old weights are dropped.
+        """
+        from face_vijnana_yolov3_tpu_torch.data.uccs import DetectionDataset
+        from face_vijnana_yolov3_tpu_torch.models.darknet import split_state_dict
+        from face_vijnana_yolov3_tpu_torch.train.trainer import train_detector
+
+        dataset = DetectionDataset(
+            self.conf.raw_data_path,
+            image_size=self.image_size,
+            grid=self.grid,
+            channels=self.nn_arch["bb_info_c_size"],
+            cache=getattr(self.conf, "dataset_cache", "none"),
+        )
+        keras_h5 = self.conf.model_path.endswith(KERAS_SUFFIXES)
+        ckpt_path = (self.conf.model_path + ".pt" if keras_h5
+                     else self.conf.model_path)
+        params, state = split_state_dict(
+            {k: v.detach().clone() for k, v in self.model.state_dict().items()})
+        params, state, losses = train_detector(
+            self.model, params, state, dataset, self.hps,
+            checkpoint_path=ckpt_path,
+            init_opt_state=self.opt_state,
+            history_path=ckpt_path + "_history.jsonl",
+            compute_dtype=(torch.bfloat16 if self.precision == "bfloat16"
+                           else None),
+            checkpoint_every=getattr(self.conf, "checkpoint_every", 0),
+            fakequant=getattr(self.conf, "train_qat", False),
+        )
+        self.model.load_state_dict({**params, **state})
+        print("Save the model.")
+        if keras_h5:
+            from face_vijnana_yolov3_tpu_torch.core.keras_import import (
+                save_detector_keras_h5,
+            )
+
+            save_detector_keras_h5(self.model.state_dict(), self.conf.model_path)
+        # New weights: every folded or calibrated program is stale (an int8
+        # detect recalibrates on its next batch).
+        self._folded = None
+        self._qparams = None
+        return losses
+
     # -------------------------------------------------------------- evaluate/test
 
-    def _matrices(self, g, max_h: int, max_w: int):
-        key = (g.src_h, g.src_w, max_h, max_w)
+    def _matrices(self, g, max_h: int, max_w: int, dec=None):
+        dh, dw = (int(dec[0]), int(dec[1])) if dec is not None else (None, None)
+        key = (g.src_h, g.src_w, max_h, max_w, dh, dw)
         if key not in self._mat_cache:
-            row, col = letterbox_matrices(g, max_h, max_w, self.image_size)
+            row, col = letterbox_matrices(g, max_h, max_w, self.image_size,
+                                          dec_h=dh, dec_w=dw)
             self._mat_cache[key] = (torch.from_numpy(row).to(self.device),
                                     torch.from_numpy(col).to(self.device))
         return self._mat_cache[key]
 
-    def detect_batch_fused(self, staged, geoms: list):
+    def detect_batch_fused(self, staged, geoms: list, dec_dims=None):
         """Strict letterbox + detect, entirely on the device.
 
         `staged` is (B, maxH, maxW, 3) images packed top-left — uint8 raw
@@ -354,14 +445,17 @@ class FaceDetectorPipeline:
         path's order) or float32 already /255 — as numpy or a tensor.
         `geoms` the per-image LetterboxGeometry list. The cv2-faithful cubic
         resize runs as two f32 matmuls; a batch of one geometry broadcasts
-        one matrix pair.
+        one matrix pair. dec_dims: (B, 2) staged pixel dims when the JPEGs
+        were decoded at a reduced DCT scale (native_loader.
+        decode_batch_staged_scaled); the geoms stay in original coordinates.
         """
         n = staged.shape[0]
         if n == 0:
             return (np.zeros((0, self.hps["num_cands"], 6), np.float32),
                     np.zeros((0,), np.int32))
         max_h, max_w = int(staged.shape[1]), int(staged.shape[2])
-        mats = [self._matrices(g, max_h, max_w) for g in geoms]
+        decs = [None] * n if dec_dims is None else list(dec_dims)
+        mats = [self._matrices(g, max_h, max_w, d) for g, d in zip(geoms, decs)]
         if all(m is mats[0] for m in mats):
             row_ms, col_ms = mats[0][0][None], mats[0][1][None]
         else:
@@ -388,18 +482,37 @@ class FaceDetectorPipeline:
         return cands.cpu().numpy(), counts.cpu().numpy()
 
     def _iter_detection_chunks(self, file_names: list[str], batch_size: int,
-                               device_letterbox: bool | None = None):
+                               device_letterbox: bool | None = None,
+                               scaled_decode: bool | None = None):
         """Letterbox + detect in device batches; yields per-CHUNK results
         (chunk_files, originals, geoms, boxes_list), boxes_list[k] rows being
         [xmin, ymin, xmax, ymax, score] floats in original coords.
 
         device_letterbox=True routes preprocessing through
-        `detect_batch_fused` (default: env FVY_DEVICE_LETTERBOX=1). The
-        prefetch thread decodes and letterboxes the next chunk and starts its
-        upload while the device works on the current one.
+        `detect_batch_fused` (default: env FVY_DEVICE_LETTERBOX=1); its JPEGs
+        then decode through the native batched loader (data/native_loader)
+        straight into the uint8 staging buffer when the library builds, else
+        through PIL. scaled_decode=True (default: env
+        FVY_JPEG_SCALED_DECODE=1; native device-letterbox path only) decodes
+        at the smallest DCT scale M/8 that still covers the letterbox: the
+        yielded originals are then the scaled pixels (no overlays on this
+        path), the geometry and box coordinates stay the true ones. The
+        prefetch thread decodes the next chunk and starts its upload while
+        the device works on the current one.
         """
         if device_letterbox is None:
             device_letterbox = os.environ.get("FVY_DEVICE_LETTERBOX") == "1"
+        if scaled_decode is None:
+            scaled_decode = os.environ.get("FVY_JPEG_SCALED_DECODE") == "1"
+        native = None
+        if device_letterbox:
+            from face_vijnana_yolov3_tpu_torch.data import native_loader
+
+            if native_loader.native_available() and all(
+                fn.lower().endswith((".jpg", ".jpeg")) for fn in file_names
+            ):
+                native = native_loader
+        self.jpeg_decoder = "native" if native is not None else "PIL"
         chunks = [
             file_names[s : s + batch_size]
             for s in range(0, len(file_names), batch_size)
@@ -407,6 +520,21 @@ class FaceDetectorPipeline:
 
         def load_chunk(i):
             chunk = chunks[i]
+            if native is not None and scaled_decode:
+                staged, dec_dims, orig_dims = native.decode_batch_staged_scaled(
+                    chunk, self.image_size)
+                originals = [staged[k, : dec_dims[k, 0], : dec_dims[k, 1]]
+                             for k in range(len(chunk))]
+                geoms = [letterbox_geometry(int(d[0]), int(d[1]), self.image_size)
+                         for d in orig_dims]
+                return ("staged", torch.from_numpy(staged), geoms, originals, dec_dims)
+            if native is not None:
+                staged, dims = native.decode_batch_staged(chunk)
+                originals = [staged[k, : dims[k, 0], : dims[k, 1]]
+                             for k in range(len(chunk))]
+                geoms = [letterbox_geometry(int(d[0]), int(d[1]), self.image_size)
+                         for d in dims]
+                return ("staged", torch.from_numpy(staged), geoms, originals, None)
             originals = [imread(fn) for fn in chunk]
             geoms = [
                 letterbox_geometry(im.shape[0], im.shape[1], self.image_size)
@@ -418,20 +546,20 @@ class FaceDetectorPipeline:
                 staged = np.zeros((len(chunk), max_h, max_w, 3), np.uint8)
                 for k, im in enumerate(originals):
                     staged[k, : im.shape[0], : im.shape[1]] = im
-                return ("staged", torch.from_numpy(staged), geoms, originals)
+                return ("staged", torch.from_numpy(staged), geoms, originals, None)
             images = np.asarray(
                 [letterbox_host(im / 255, self.image_size, "cubic")[0]
                  for im in originals],
                 np.float32,
             )
-            return ("letterboxed", torch.from_numpy(images), geoms, originals)
+            return ("letterboxed", torch.from_numpy(images), geoms, originals, None)
 
         loaded = prefetch_batches(
             load_chunk, len(chunks), prefetch=2, device=self.device
         )
-        for chunk, (kind, batch, geoms, originals) in zip(chunks, loaded):
+        for chunk, (kind, batch, geoms, originals, dec_dims) in zip(chunks, loaded):
             if kind == "staged":
-                cands, counts = self.detect_batch_fused(batch, geoms)
+                cands, counts = self.detect_batch_fused(batch, geoms, dec_dims=dec_dims)
             else:
                 cands, counts = self.detect_batch(batch)
             ub = unletterbox_boxes_chunk(cands, geoms)
@@ -604,16 +732,13 @@ def main(argv: list[str] | None = None, *,
     conf = load_conf(conf_path)
     apply_overrides(conf, overrides)
     fd_conf = conf.fd_conf
-    if fd_conf.mode not in ("evaluate", "test"):
-        raise NotImplementedError(
-            f"mode {fd_conf.mode!r}: detector training is ROADMAP.md queue 1 "
-            "item 8; the port serves evaluate and test")
-
     fd = FaceDetectorPipeline(fd_conf, device=device)
     ts = time.time()
-    if fd_conf.mode == "evaluate":
+    if fd_conf.mode == "train":
+        fd.train()
+    elif fd_conf.mode == "evaluate":
         fd.evaluate()
-    else:
+    elif fd_conf.mode == "test":
         fd.test()
     te = time.time()
     print("Elasped time: {0:f}s".format(te - ts))  # reference output parity

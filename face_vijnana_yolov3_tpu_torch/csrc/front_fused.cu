@@ -175,7 +175,8 @@ __device__ __forceinline__ void wgmma_n64k16(float (&d)[32], const uint32_t (&a)
 }
 
 struct FrontShape {
-  int s, gs, tiles_w, tiles_h, tiles, use_tma;
+  int s, gs, tiles_w, tiles_h, use_tma;
+  long long tiles;  // B * tiles_h * tiles_w: 64-bit, so any batch the grid walks
 };
 
 // conv_0's A fragment of one chunk and kernel row dy, per thread: rows g and
@@ -276,15 +277,15 @@ front_fused_kernel(const __grid_constant__ CUtensorMap xmap, const float* __rest
   fence_proxy_async();  // the weights are read by wgmma (the async proxy)
   __syncthreads();
 
-  auto decode = [&](int t, int& b, int& p0, int& q0) {
-    const int tx = t % sh.tiles_w;
+  auto decode = [&](long long t, int& b, int& p0, int& q0) {
+    const int tx = static_cast<int>(t % sh.tiles_w);
     t /= sh.tiles_w;
-    p0 = (t % sh.tiles_h) * kTR;
+    p0 = static_cast<int>(t % sh.tiles_h) * kTR;
     q0 = tx * kTC;
-    b = t / sh.tiles_h;
+    b = static_cast<int>(t / sh.tiles_h);
   };
 
-  if (sh.use_tma && tid == 0 && static_cast<int>(blockIdx.x) < sh.tiles) {
+  if (sh.use_tma && tid == 0 && static_cast<long long>(blockIdx.x) < sh.tiles) {
     int b, p0, q0;
     decode(blockIdx.x, b, p0, q0);
     load_patch(&xmap, smem, &full[0], &empty[0], 0, b, p0, q0);
@@ -303,7 +304,7 @@ front_fused_kernel(const __grid_constant__ CUtensorMap xmap, const float* __rest
     bias0[nt][1] = b0s[nt * 8 + 2 * t4 + 1];
   }
   int it = 0;
-  for (int t = blockIdx.x; t < sh.tiles; t += gridDim.x, ++it) {
+  for (long long t = blockIdx.x; t < sh.tiles; t += gridDim.x, ++it) {
     int b, p0, q0;
     decode(t, b, p0, q0);
     const int st = it & 1;
@@ -337,7 +338,7 @@ front_fused_kernel(const __grid_constant__ CUtensorMap xmap, const float* __rest
     if (sh.use_tma && wtid == 0) mbar_arrive(&empty[st]);
     // The next tile's patch, a whole tile ahead (its slot was released when
     // both warpgroups converted the tile before this one).
-    if (sh.use_tma && tid == 0 && t + static_cast<int>(gridDim.x) < sh.tiles) {
+    if (sh.use_tma && tid == 0 && t + gridDim.x < sh.tiles) {
       int nb, np0, nq0;
       decode(t + gridDim.x, nb, np0, nq0);
       load_patch(&xmap, smem + (st ^ 1) * kSlot, &full[st ^ 1], &empty[st ^ 1], it + 1,
@@ -426,7 +427,7 @@ front_fused_kernel(const __grid_constant__ CUtensorMap xmap, const float* __rest
 
 }  // namespace
 
-// x (B, S, S, 3) f32 NHWC, S even, B <= 65,535; w0 (32, 48) bf16
+// x (B, S, S, 3) f32 NHWC, S even, any B; w0 (32, 48) bf16
 // [cout][16 dy + 4 dx + cin], zero at dx = 3 and cin = 3; b0 (32,) f32;
 // w1 (64, 288) bf16 [cout][(dy*3+dx)*32+cin]; b1 (64,) f32;
 // out (B, S/2, S/2, 64) bf16. All contiguous on one device, 16-byte
@@ -435,7 +436,7 @@ front_fused_kernel(const __grid_constant__ CUtensorMap xmap, const float* __rest
 extern "C" int fvy_front_fused(const float* x, const uint16_t* w0, const float* b0,
                                const uint16_t* w1, const float* b1, uint16_t* out,
                                int batch, int s, void* stream) {
-  if (batch < 0 || batch > 65535 || s < 2 || s % 2 != 0)
+  if (batch < 0 || s < 2 || s % 2 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   FrontShape sh;
@@ -443,7 +444,7 @@ extern "C" int fvy_front_fused(const float* x, const uint16_t* w0, const float* 
   sh.gs = s / 2;
   sh.tiles_w = (sh.gs + kTC - 1) / kTC;
   sh.tiles_h = (sh.gs + kTR - 1) / kTR;
-  sh.tiles = batch * sh.tiles_h * sh.tiles_w;
+  sh.tiles = static_cast<long long>(batch) * sh.tiles_h * sh.tiles_w;
   sh.use_tma = s % 4 == 0;  // TMA wants a row pitch (12 S bytes) of 16-byte multiples
   CUtensorMap xmap{};
   if (sh.use_tma) {
@@ -472,7 +473,7 @@ extern "C" int fvy_front_fused(const float* x, const uint16_t* w0, const float* 
     }
   }
   const int fit = sms * (per_sm > 0 ? per_sm : 1);
-  front_fused_kernel<<<sh.tiles < fit ? sh.tiles : fit, kThreads, kSmem,
+  front_fused_kernel<<<static_cast<int>(sh.tiles < fit ? sh.tiles : fit), kThreads, kSmem,
                        static_cast<cudaStream_t>(stream)>>>(xmap, x, w0, b0, w1, b1, out, sh);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,7 @@
 //      __ballot_sync. Only rows with score > 0 can ever suppress, so only
 //      they get a mask, and only words w >= i / 32 (the scan reads no other).
 //   2. scan: one warp, with the `removed` bitset in registers (lane w holds
-//      word w; 32 words cover kMaxN = 1024 rows). Word by word: the word's
+//      word w; 32 words cover kSmemMaxN = 1024 rows). Word by word: the word's
 //      32 diagonal mask words are shuffled to every lane, which resolves
 //      the word's rows in the same unrolled register loop (a row is alive
 //      iff its score > 0 and its bit is not removed; an alive row removes
@@ -33,6 +33,15 @@
 // Shared memory: boxes, scores and areas (24 B a row) and the mask,
 // N x ceil(N/32) words, sized per launch (152 KB at N = 1024).
 //
+// N > 1024 (image_size >= 1,056: N = (image_size / 32)^2): the mask no longer
+// fits shared memory (320 KB at N = 1,600, 2 MiB at N = 4,096) and `removed`
+// no longer fits one register a lane. `nms_sweep_global_kernel` runs the
+// same two phases with the mask rows in a device-memory workspace that the
+// wrapper allocates (N x ceil(N/32) words an image), boxes and scores read
+// from the inputs, each area recomputed where it is used (the same product,
+// so the same rounding), and `removed` in shared memory, ceil(N/32) words
+// written by one lane each; the scan is otherwise the one above.
+//
 // Build flags (face_vijnana_yolov3_tpu_torch/kernels.py): -fmad=false and no
 // --use_fast_math. That keeps IEEE division, keeps NaN >= th false, and
 // keeps the area products out of fused multiply-adds, so each IoU is the
@@ -45,7 +54,7 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 1024;  // the wrapper refuses larger N
+constexpr int kSmemMaxN = 1024;  // larger N takes nms_sweep_global_kernel
 constexpr unsigned kAll = 0xffffffffu;
 
 // max(0, min(a_max, b_max) - max(a_min, b_min)) as jnp computes it, where
@@ -144,22 +153,108 @@ nms_sweep_kernel(const float* __restrict__ boxes,
   }
 }
 
+// The sweep for N > kSmemMaxN: the same mask and scan as nms_sweep_kernel,
+// with the mask rows in `mask_ws` (this block's N x words words) and the
+// removed bitset in shared memory (word v written by lane 0 after the warp
+// reduction that all lanes see).
+__global__ void __launch_bounds__(kThreads)
+nms_sweep_global_kernel(const float* __restrict__ boxes,
+                        const float* __restrict__ scores,
+                        float* __restrict__ out, uint32_t* __restrict__ mask_ws,
+                        int n, float iou_th) {
+  extern __shared__ uint32_t removed_s[];  // [words]
+  const int words = (n + 31) / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  const float4* box = reinterpret_cast<const float4*>(boxes) + base;
+  const float* s = scores + base;
+  uint32_t* mask = mask_ws + static_cast<size_t>(blockIdx.x) * n * words;
+  for (int v = threadIdx.x; v < words; v += kThreads) removed_s[v] = 0u;
+
+  // 1. mask, as in nms_sweep_kernel.
+  for (int i = warp; i < n; i += kWarps) {
+    if (!(s[i] > 0.0f)) continue;
+    const float4 a = box[i];
+    const float area_a = (a.z - a.x) * (a.w - a.y);
+    for (int w = i >> 5; w < words; ++w) {
+      const int j = 32 * w + lane;
+      bool hit = false;
+      if (j > i && j < n) {
+        const float4 bj = box[j];
+        const float area_b = (bj.z - bj.x) * (bj.w - bj.y);
+        const float iw = overlap(a.x, a.z, bj.x, bj.z);
+        const float ih = overlap(a.y, a.w, bj.y, bj.w);
+        const float intersect = iw * ih;
+        const float uni = area_a + area_b - intersect;
+        hit = intersect / uni >= iou_th;  // NaN: false
+      }
+      const uint32_t bits = __ballot_sync(kAll, hit);
+      if (lane == 0) mask[static_cast<size_t>(i) * words + w] = bits;
+    }
+  }
+  __syncthreads();  // the mask's global writes are visible to the block
+  if (warp != 0) return;
+
+  // 2. scan, as in nms_sweep_kernel. (A variant that first staged each
+  // word's 32 mask rows in shared memory with coalesced loads ran slower on
+  // an H100: the scan's loads are not what bounds this kernel.)
+  for (int w = 0; w < words; ++w) {
+    const int j = 32 * w + lane, rows = min(32, n - 32 * w);
+    const uint32_t positive = __ballot_sync(kAll, j < n && s[j] > 0.0f);
+    const uint32_t* mrow = mask + static_cast<size_t>(32 * w + min(lane, rows - 1)) * words;
+    const uint32_t dl = mrow[w];
+    uint32_t cand = positive & ~removed_s[w];
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const uint32_t d = __shfl_sync(kAll, dl, b);
+      if ((cand >> b) & 1u) cand &= ~d;  // row b is alive
+    }
+    const bool alive = (cand >> lane) & 1u;
+#pragma unroll 4
+    for (int v = w; v < words; ++v) {  // the loads of several words in flight
+      const uint32_t mv = mrow[v];
+      const uint32_t r = __reduce_or_sync(kAll, alive ? mv : 0u);
+      if (lane == 0) removed_s[v] |= r;
+    }
+    __syncwarp();
+  }
+
+  // 3. write.
+  for (int w = 0; w < words; ++w) {
+    const uint32_t r = removed_s[w];
+    const int j = 32 * w + lane;
+    if (j < n) out[base + j] = (r >> lane) & 1u ? 0.0f : s[j];
+  }
+}
+
 }  // namespace
 
 // boxes (B, N, 4), scores (B, N), out (B, N): contiguous f32 on one device,
-// boxes 16-byte aligned. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// boxes 16-byte aligned. For N > 1024, `mask_ws` holds B * N * ceil(N/32)
+// uint32 words of device memory (unused, may be null, below). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fvy_nms_sweep(const float* boxes, const float* scores,
-                             float* out, int B, int N, float iou_th,
-                             void* stream) {
-  if (N < 0 || N > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+                             float* out, void* mask_ws, int B, int N,
+                             float iou_th, void* stream) {
+  if (N < 0 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N > kSmemMaxN) {
+    if (mask_ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = static_cast<size_t>((N + 31) / 32) * sizeof(uint32_t);
+    cudaError_t e = cudaFuncSetAttribute(
+        nms_sweep_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    nms_sweep_global_kernel<<<B, kThreads, smem, st>>>(
+        boxes, scores, out, static_cast<uint32_t*>(mask_ws), N, iou_th);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = smem_bytes(N);
   cudaError_t e = cudaFuncSetAttribute(
       nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  nms_sweep_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      boxes, scores, out, N, iou_th);
+  nms_sweep_kernel<<<B, kThreads, smem, st>>>(boxes, scores, out, N, iou_th);
   return static_cast<int>(cudaGetLastError());
 }

@@ -104,7 +104,7 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fvy_nms_sweep.argtypes = [p, p, p, i, i, f, p]
+    lib.fvy_nms_sweep.argtypes = [p, p, p, p, i, i, f, p]
     lib.fvy_nms_sweep.restype = i
     # x, wq, w_scale, bias, skip, skip_s, inv_out, out,
     # batch, h, w, cin, cout, k, stride, leaky, tile_w, tile_h, stream

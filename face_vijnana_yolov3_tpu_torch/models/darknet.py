@@ -5,8 +5,11 @@ copy of face_vijnana_yolov3_tpu/models/darknet.py:35-136 (that module imports
 jax, so it cannot be imported here); tests/test_torch_darknet.py holds the
 lists equal.
 
-`Darknet` interprets the IR with eval-mode BatchNorm exactly as the JAX
-`apply_graph(train=False)` does (darknet.py:496-503): BN runs in the JAX order
+`apply_graph_train` is the training forward (JAX `apply_graph(train=True)`,
+darknet.py:361-533) on explicit param/state dicts: BatchNorm on batch
+statistics with the Keras momentum rule, optional int8 fake-quant (QAT) and
+bf16 mixed precision. `Darknet` interprets the IR with eval-mode BatchNorm
+exactly as the JAX `apply_graph(train=False)` does (darknet.py:496-503): BN runs in the JAX order
 `(h - mean) * (rsqrt(var + eps) * gamma) + beta` — not nn.BatchNorm2d's —
 with eps 1e-3, and leaky is `where(h > 0, h, 0.1 * h)`. Every k=3 conv pads 1
 on both sides (stride 2 too, darknet.py:311-314). Activations run NCHW; the
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99  # Keras: moving = 0.99 * moving + 0.01 * batch
 LEAKY_ALPHA = 0.1
 
 
@@ -381,3 +385,130 @@ def apply_graph_folded(folded: dict, x: torch.Tensor, ops: list[tuple], *,
             if observe is not None:
                 observe(h)
     return outputs
+
+
+# ------------------------------------------------------------------ training forward
+
+def split_state_dict(sd: dict) -> tuple[dict, dict]:
+    """A module state dict → (params, state): the trained tensors (conv
+    weights and biases, BN gamma/beta, the head) and the BN moving
+    statistics (`bnorm_{i}.mean/var`), the JAX package's params/state split."""
+    params = {k: v for k, v in sd.items() if not k.endswith((".mean", ".var"))}
+    state = {k: v for k, v in sd.items() if k.endswith((".mean", ".var"))}
+    return params, state
+
+
+def _act_fq(h: torch.Tensor):
+    """Per-channel int8 activation fake-quant of an NCHW activation with a
+    straight-through gradient (darknet.py:254-267): s = max(batch maxabs,
+    1e-6) / 127, held constant; value hf + (clip(round(hf / s), ±127) * s -
+    hf), whose gradient is the identity. torch.round rounds half to even, as
+    jnp.round. Returns (f32 value, (C,) scale)."""
+    hf = h.float()
+    s = torch.clamp_min(hf.detach().abs().amax(dim=(0, 2, 3)), 1e-6) / 127.0
+    sb = s[:, None, None]
+    q = torch.clamp(torch.round(hf / sb), -127.0, 127.0) * sb
+    return hf + (q - hf).detach(), s
+
+
+def _weight_fq(kernel: torch.Tensor, s_in: torch.Tensor | None) -> torch.Tensor:
+    """Per-output-channel int8 weight fake-quant of an OIHW kernel with the
+    input activation scales folded in, as quantize_folded deploys it
+    (darknet.py:270-292), straight-through; s_in None = no input scales."""
+    k = kernel.float()
+    k_eff = k * s_in[None, :, None, None] if s_in is not None else k
+    w_scale = torch.clamp_min(k_eff.detach().abs().amax(dim=(1, 2, 3)), 1e-8) / 127.0
+    ws = w_scale[:, None, None, None]
+    q = torch.clamp(torch.round(k_eff / ws), -127.0, 127.0) * ws
+    k_fq = k_eff + (q - k_eff).detach()
+    return k_fq / s_in[None, :, None, None] if s_in is not None else k_fq
+
+
+def fakequant_skip_ops(ops: list[tuple]) -> set[int]:
+    """Op indices whose activation requant is deferred to after the next
+    "add" (the fused-residual rule, darknet.py:295-308)."""
+    return {i for i, op in enumerate(ops)
+            if op[0] == "conv" and i + 1 < len(ops) and ops[i + 1][0] == "add"}
+
+
+def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tuple], *,
+                      compute_dtype=torch.float32, bn_momentum: float | None = None,
+                      fakequant: bool = False) -> tuple[dict, dict]:
+    """Training-mode forward (JAX `apply_graph(train=True)`): x (B, S, S, 3)
+    NHWC → ({output name: NHWC f32}, new_state).
+
+    params/state are state-dict-named tensors (`split_state_dict`). Each
+    conv casts its input and kernel to `compute_dtype` (bf16: a bf16 conv
+    with a bf16 result, f32 accumulation, as XLA's with no preferred type);
+    BatchNorm takes batch statistics in f32, var = max(E[x^2] - E[x]^2, 0)
+    (biased), normalises as (h - mean) * (rsqrt(var + eps) * gamma) + beta,
+    and updates moving = m * moving + (1 - m) * batch for mean and var with
+    m = bn_momentum or 0.99 (not nn.BatchNorm2d's rule, which weights the
+    other way and keeps an unbiased variance); leaky runs in f32, then the
+    activation is cast back to `compute_dtype`. fakequant adds the int8
+    fake-quant of every requant position and of every kernel (QAT). f32
+    convs need TF32 off (the caller sets it: JAX Precision.HIGHEST).
+    Activations run NCHW inside.
+    """
+    mom = BN_MOMENTUM if bn_momentum is None else bn_momentum
+    saved: dict[str, torch.Tensor] = {}
+    saved_scale: dict[str, torch.Tensor | None] = {}
+    outputs: dict[str, torch.Tensor] = {}
+    new_state = dict(state)
+    h = x.permute(0, 3, 1, 2)
+    fq_scale = None
+    fq_skip = fakequant_skip_ops(ops) if fakequant else set()
+    if fakequant:
+        h, fq_scale = _act_fq(h)
+    for i, op in enumerate(ops):
+        kind = op[0]
+        if kind == "conv":
+            _, idx, _out_c, k, stride, bn, act = op
+            kernel = params[f"conv_{idx}.weight"]
+            if fakequant:
+                kernel = _weight_fq(kernel, fq_scale)
+            h = F.conv2d(h.to(compute_dtype), kernel.to(compute_dtype),
+                         stride=stride, padding=k // 2)
+            if bn:
+                name = f"bnorm_{idx}"
+                hf = h.float()
+                mean = hf.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((hf * hf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+                inv = torch.rsqrt(var + BN_EPS)
+                scale = inv * params[f"{name}.gamma"]
+                h = ((hf - mean[:, None, None]) * scale[:, None, None]
+                     + params[f"{name}.beta"][:, None, None])
+                new_state[f"{name}.mean"] = (state[f"{name}.mean"] * mom
+                                             + mean.detach() * (1 - mom))
+                new_state[f"{name}.var"] = (state[f"{name}.var"] * mom
+                                            + var.detach() * (1 - mom))
+            else:
+                h = h + params[f"conv_{idx}.bias"][:, None, None]
+            if act:
+                h = leaky(h)
+            if fakequant and i not in fq_skip:
+                h, fq_scale = _act_fq(h)
+            h = h.to(compute_dtype)
+        elif kind in ("save", "mark"):
+            saved[op[1]] = h
+            saved_scale[op[1]] = fq_scale
+        elif kind == "add":
+            h = saved[op[1]] + h
+            if fakequant:
+                h, fq_scale = _act_fq(h)
+                h = h.to(compute_dtype)
+        elif kind == "restore":
+            h = saved[op[1]]
+            fq_scale = saved_scale.get(op[1])
+        elif kind == "concat":
+            h = torch.cat([h, saved[op[1]]], dim=1)
+            if fakequant:
+                h, fq_scale = _act_fq(h)
+                h = h.to(compute_dtype)
+        elif kind == "upsample":
+            h = h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        elif kind == "output":
+            outputs[op[1]] = h.float().permute(0, 2, 3, 1)
+        else:
+            raise ValueError(f"unknown op {op}")
+    return outputs, new_state

@@ -2,10 +2,13 @@
 
 Port of face_vijnana_yolov3_tpu/models/detector.py:20-164: (B, S, S, 3) NHWC
 → trunk conv_0..73 → 3x3 'same' linear conv → (B, S/32, S/32, 6) raw [obj,
-bx, by, bw, bh, score] logits, NHWC like the JAX apply. Three forwards: the
-module's own (eval BatchNorm, f32), `apply_folded` (BN folded, f32 or bf16)
-and `apply_quant` (int8 trunk, bf16 head), the last two on explicit param
-dicts as in the JAX package.
+bx, by, bw, bh, score] logits, NHWC like the JAX apply. Four forwards: the
+module's own (eval BatchNorm, f32), `apply_train` (batch-statistics
+BatchNorm, f32 or bf16 mixed precision, optional fake-quant: the training
+forward), `apply_folded` (BN folded, f32 or bf16) and `apply_quant` (int8
+trunk, bf16 head), the last three on explicit param dicts as in the JAX
+package. `loss` is the training loss (Keras loss='mse'); `fd_loss` the
+reference's unused custom loss, carried for surface parity.
 
 The JAX f32 path asks for Precision.HIGHEST (detector.py:26-28); the
 counterpart on the card is cuDNN and cuBLAS with TF32 off, which
@@ -75,6 +78,28 @@ class FaceDetectorModel(darknet.Darknet):
         feat = self.run_nchw(x.permute(0, 3, 1, 2).contiguous())["trunk"]
         return self.head(feat).permute(0, 2, 3, 1)
 
+    # -------------------------------------------------------------- training
+
+    def apply_train(self, params: dict, state: dict, x: torch.Tensor, *,
+                    compute_dtype=torch.float32, bn_momentum=None,
+                    fakequant: bool = False):
+        """Training forward (detector.py:82-100): (B, S, S, 3) NHWC →
+        ((B, S/32, S/32, 6) f32 head, new BN state). params/state are
+        state-dict-named tensors (`darknet.split_state_dict`); the head conv
+        runs in `compute_dtype` and is never fake-quantized (the deployed
+        int8 program serves a bf16 head)."""
+        outs, new_state = darknet.apply_graph_train(
+            params, state, x, self.ops, compute_dtype=compute_dtype,
+            bn_momentum=bn_momentum, fakequant=fakequant)
+        head = {"kernel": params["head.weight"], "bias": params["head.bias"]}
+        return head_conv(outs["trunk"].to(compute_dtype), head, compute_dtype), new_state
+
+    @staticmethod
+    def loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """Keras loss='mse' (detector.py:169-173): the mean of the squared
+        error over every element."""
+        return torch.mean(torch.square(pred - gt))
+
     # -------------------------------------------------------------- folded
 
     def fold(self) -> dict:
@@ -127,3 +152,26 @@ def head_conv(feat: torch.Tensor, head: dict, compute_dtype) -> torch.Tensor:
     with darknet.exact_f32():
         h = darknet.conv_nhwc(feat, head["kernel"].to(compute_dtype), 1)
     return (h + head["bias"]).float()
+
+
+_K_EPSILON = 1e-7  # keras.backend.epsilon() in the reference's Keras 2.2.4
+
+
+def _keras_binary_crossentropy(target: torch.Tensor, output: torch.Tensor) -> torch.Tensor:
+    """K.binary_crossentropy(target, output, from_logits=False): the output
+    clipped to [eps, 1 - eps], elementwise BCE (detector.py:179-185)."""
+    output = torch.clamp(output, _K_EPSILON, 1.0 - _K_EPSILON)
+    return -(target * torch.log(output) + (1.0 - target) * torch.log(1.0 - output))
+
+
+def fd_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """The reference's custom detector loss (detector.py:188-205), defined
+    there but unused by training (the parity default is `loss`, Keras
+    'mse'). BCE on the raw head channels 0 and 5 as if they were
+    probabilities, and mean(sqrt(square(diff))) over channels 1:5; returns
+    the per-cell loss map, unreduced."""
+    o_loss = _keras_binary_crossentropy(y_true[..., 0], y_pred[..., 0])
+    l2_loss = torch.mean(torch.sqrt(torch.square(y_true[..., 1:5] - y_pred[..., 1:5])),
+                         dim=-1)
+    c_loss = _keras_binary_crossentropy(y_true[..., 5], y_pred[..., 5])
+    return (o_loss + l2_loss + c_loss) / 3.0

@@ -18,8 +18,12 @@ package's):
 `to_device` adds the device copies and the f32 scale / inverse-scale
 vectors the walk uses; `apply_graph_quant` calls it.
 
-Not ported yet (ROADMAP.md queue 1 item 6): the "msegrid" calibrator, PTQ
-bias correction and distillation QAT; each raises NotImplementedError.
+Calibration takes exact maxabs, a percentile, "auto" or the "msegrid"
+grid search (`calibrate_folded_msegrid`); `quantize_folded(bias_correct=True)`
+folds the measured mean quantization error into the biases
+(`bias_correct_quant`). Distillation QAT (the JAX package's
+models/qat.distill_folded, `int8_qat_steps`) is not carried: it measured
+below every PTQ row (ROADMAP.md, "code the port should not carry").
 """
 
 from __future__ import annotations
@@ -31,14 +35,22 @@ import torch
 
 from face_vijnana_yolov3_tpu_torch.models import darknet
 from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_eligible, block_int8
-from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8, fma_f32, quantize
+from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
+    conv_acc_reference,
+    conv_int8,
+    fma_f32,
+    quantize,
+)
 
 # Candidate clip percentiles scored by "auto" calibration (plus exact maxabs)
 # and the margin a clip must win by (quant.py:41-62).
 AUTO_CALIB_PERCENTILES = (99.99, 99.9)
 AUTO_CALIB_MARGIN = 0.3
-
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1 item 6)"
+# "msegrid": a log-spaced clip-ratio grid searched per channel by measured
+# round-trip MSE, picked on the host in f64 (quant.py:45-47).
+MSEGRID_CANDIDATES = 96
+MSEGRID_LO = 0.002
+MSEGRID_TOL = 0.05
 
 
 def _percentiles(a: torch.Tensor, percentiles) -> torch.Tensor:
@@ -96,9 +108,13 @@ def calibrate_folded(folded: dict, x: torch.Tensor, ops: list[tuple], *,
     AUTO_CALIB_MARGIN of maxabs's. The statistics stay on x's device; one
     copy brings them back. TF32 is off in the forward (exact_f32).
     """
+    if isinstance(percentile, str) and percentile.startswith("msegrid"):
+        tol = (float(percentile.split(":", 1)[1]) if ":" in percentile
+               else MSEGRID_TOL)
+        return calibrate_folded_msegrid(folded, x, ops, tol=tol)
     if isinstance(percentile, str) and percentile != "auto":
-        raise NotImplementedError(f"int8 calibration {percentile!r}: the msegrid "
-                                  f"calibrator is {NOT_PORTED}")
+        raise ValueError(f"int8 calibration {percentile!r}: expected None, a "
+                         "percentile, 'auto' or 'msegrid[:tol]'")
     x = torch.as_tensor(x, dtype=torch.float32)
     stats = [_calib_stat(x, percentile)]
     darknet.apply_graph_folded(
@@ -112,6 +128,60 @@ def calibrate_folded(folded: dict, x: torch.Tensor, ops: list[tuple], *,
     if off != flat.size:
         raise AssertionError(f"calibration walk gave {flat.size} values, "
                              f"the graph has {off} channels")
+    return out
+
+
+def msegrid_ratios(n_cand: int = MSEGRID_CANDIDATES,
+                   lo: float = MSEGRID_LO) -> np.ndarray:
+    """Log-spaced clip ratios in (lo, 1.0], the last exactly 1.0 (maxabs)."""
+    r = np.exp(np.linspace(np.log(lo), 0.0, n_cand))
+    r[-1] = 1.0
+    return r
+
+
+def _msegrid_stat(h: torch.Tensor, ratios: torch.Tensor) -> torch.Tensor:
+    """[maxabs (C,), round-trip MSE (J, C) flattened] of one activation, f32
+    (quant.py:225-232): candidate j's grid is max(m, 1e-8) * ratio_j / 127.
+    One candidate at a time, so no (J, N, C) tensor is ever made."""
+    a = h.abs().reshape(-1, h.shape[-1]).float()
+    m = a.amax(dim=0)
+    s = (torch.clamp_min(m, 1e-8)[None, :] * ratios[:, None]) / 127.0  # (J, C)
+    err = torch.stack([
+        torch.mean(torch.square(
+            torch.round(a / s[j]).clamp(-127, 127) * s[j] - a), dim=0)
+        for j in range(s.shape[0])])
+    return torch.cat([m, err.reshape(-1)])
+
+
+def calibrate_folded_msegrid(folded: dict, x, ops: list[tuple], *,
+                             tol: float = MSEGRID_TOL) -> list[np.ndarray]:
+    """Deterministic per-channel calibration by a measured-MSE clip search
+    (quant.py:179-275): on x's device, each position's per-channel maxabs
+    and the int8 round-trip MSE of MSEGRID_CANDIDATES clip ratios; on the
+    host in f64, per channel, the LARGEST ratio whose MSE is within (1 + tol) of
+    the channel's minimum (the mildest clip inside the window). Returns the
+    calibrate_folded layout: len(ops) + 1 float64 (C,) vectors.
+    """
+    n_cand = MSEGRID_CANDIDATES
+    ratios_np = msegrid_ratios()
+    x = torch.as_tensor(x, dtype=torch.float32)
+    ratios = torch.as_tensor(ratios_np, dtype=torch.float32, device=x.device)
+    stats = [_msegrid_stat(x, ratios)]
+    darknet.apply_graph_folded(
+        folded, x, ops, compute_dtype=torch.float32,
+        observe=lambda h: stats.append(_msegrid_stat(h, ratios)))
+    flat = torch.cat(stats).cpu().numpy().astype(np.float64)
+    out, off = [], 0
+    for c in _position_channels(ops, int(x.shape[-1])):
+        m = np.maximum(flat[off: off + c], 1e-8)
+        err = flat[off + c: off + c * (1 + n_cand)].reshape(n_cand, c)
+        off += c * (1 + n_cand)
+        ok = err <= err.min(axis=0) * (1.0 + tol)
+        jstar = (n_cand - 1) - np.argmax(ok[::-1, :], axis=0)  # last True row
+        out.append((m * ratios_np[jstar] / 127.0).astype(np.float64))
+    if off != flat.size:
+        raise AssertionError(f"msegrid walk gave {flat.size} values, the graph "
+                             f"has {off}")
     return out
 
 
@@ -159,9 +229,12 @@ def quantize_folded(folded: dict, x_calib, ops: list[tuple], *,
     the last N residual blocks (and what follows) in folded bf16;
     act_scales reuses precomputed scales; bf16_ops names convs served as
     bf16 islands. The qparams come back on the CPU (`to_device` moves them).
+    bias_correct folds each conv's measured mean quantization error into
+    its bias (`bias_correct_quant`); it excludes bf16_ops, as in the JAX
+    package (the correction walk models an all-int8 program).
     """
-    if bias_correct:
-        raise NotImplementedError(f"int8 bias correction is {NOT_PORTED}")
+    if bf16_ops and bias_correct:
+        raise ValueError("bf16_ops and bias_correct are mutually exclusive")
     scales = (act_scales if act_scales is not None else
               calibrate_folded(folded, x_calib, ops, percentile=percentile))
     tail_start = (tail_start_index(ops, bf16_tail_blocks)
@@ -207,7 +280,96 @@ def quantize_folded(folded: dict, x_calib, ops: list[tuple], *,
         cur = i + 1
     if "head" in folded:
         qparams["head"] = host(folded["head"])
+    if bias_correct:
+        qparams = bias_correct_quant(qparams, folded, x_calib, ops)
     return qparams
+
+
+@torch.no_grad()
+def bias_correct_quant(qparams: dict, folded: dict, x_calib, ops: list[tuple]) -> dict:
+    """PTQ bias correction (quant.py:416-528): one walk of the int8 program
+    beside the f32 folded one; at each conv the per-output-channel mean of
+    (f32 pre-activation - int8 pre-activation) over batch and space is
+    added to the int8 pre-activation at once (later layers see corrected
+    predecessors) and to the conv's bias. The walk follows the served
+    numerics with fuse_residual=True (a conv feeding an add requantizes
+    once, at the post-add scale); with a bf16 tail it stops at the cut.
+
+    The int8 sums are the exact ones of `conv_acc_reference` (the walk
+    needs each conv's pre-requant values, which the fused kernels never
+    write out). Scales, kernels and the program are unchanged; returns new
+    qparams (CPU) with corrected biases.
+    """
+    x = torch.as_tensor(x_calib, dtype=torch.float32)
+    qp = to_device(qparams, x.device)
+    scale, inv = qp["act_scales_f32"], qp["act_inv_f32"]
+    tail_start = qparams.get("tail_start")
+    n_ops = tail_start if tail_start is not None else len(ops)
+    deltas = []
+    h_f = x
+    h_q, s = quantize(h_f, inv[0]), 0
+    saved: dict[str, tuple] = {}
+    skip_add = False
+    with darknet.exact_f32():
+        for i, op in enumerate(ops[:n_ops]):
+            kind = op[0]
+            out_pos = i + 1
+            if skip_add:  # consumed by the previous conv's fused epilogue
+                skip_add = False
+                continue
+            if kind == "conv":
+                _, idx, _out_c, _k, stride, _bn, act = op
+                p, fp = qp[f"conv_{idx}"], folded[f"conv_{idx}"]
+                acc = conv_acc_reference(h_q, p["kernel_q"], stride)
+                y_q = fma_f32(acc.float(), p["w_scale"], p["bias"])
+                y_f = darknet.conv_nhwc(h_f, fp["kernel"].float(), stride) + fp["bias"]
+                d = torch.mean(y_f - y_q, dim=(0, 1, 2))
+                deltas.append(d)
+                y_q = y_q + d
+                if act:
+                    y_q, y_f = darknet.leaky(y_q), darknet.leaky(y_f)
+                if i + 1 < n_ops and ops[i + 1][0] == "add":
+                    sq, spos, sf = saved[ops[i + 1][1]]
+                    y_q = fma_f32(sq.float(), scale[spos], y_q)
+                    y_f = y_f + sf
+                    out_pos, skip_add = i + 2, True  # post-add position's scale
+                h_q, s, h_f = quantize(y_q, inv[out_pos]), out_pos, y_f
+            elif kind in ("save", "mark"):
+                saved[op[1]] = (h_q, s, h_f)
+            elif kind == "add":
+                sq, spos, sf = saved[op[1]]
+                y = sq.float() * scale[spos] + h_q.float() * scale[s]
+                h_q, s, h_f = quantize(y, inv[out_pos]), out_pos, sf + h_f
+            elif kind == "restore":
+                h_q, s, h_f = saved[op[1]]
+            elif kind == "concat":
+                sq, spos, sf = saved[op[1]]
+                y = torch.cat([h_q.float() * scale[s], sq.float() * scale[spos]], dim=-1)
+                h_q, s = quantize(y, inv[out_pos]), out_pos
+                h_f = torch.cat([h_f, sf], dim=-1)
+            elif kind == "upsample":
+                h_q = h_q.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+                h_f = h_f.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            elif kind == "output":
+                pass
+            else:
+                raise ValueError(f"unknown op {op}")
+    flat = torch.cat(deltas).cpu().numpy() if deltas else np.zeros(0, np.float32)
+    out = dict(qparams)
+    off = 0
+    for op in ops[:n_ops]:
+        if op[0] != "conv":
+            continue
+        idx, out_c = op[1], op[2]
+        entry = dict(out[f"conv_{idx}"])
+        entry["bias"] = entry["bias"].cpu().float() + torch.from_numpy(
+            flat[off:off + out_c].astype(np.float32))
+        out[f"conv_{idx}"] = entry
+        off += out_c
+    if off != flat.size:
+        raise AssertionError(f"bias correction measured {flat.size} channels, "
+                             f"the walk has {off}")
+    return out
 
 
 def to_device(qparams: dict, device) -> dict:

@@ -37,10 +37,6 @@ import torch.nn.functional as F
 from face_vijnana_yolov3_tpu_torch.models import darknet
 
 C0, C1 = 32, 64  # conv_0 and conv_1 output channels (darknet.trunk_graph)
-# csrc/front_fused.cu walks B * ceil(S/16) * ceil(S/32) tiles with 32-bit
-# indices; it refuses batches above this (the grid limit of the kernel
-# before it was persistent).
-MAX_BATCH = 65535
 
 
 def _front_params(folded: dict):
@@ -116,8 +112,6 @@ def fused_front(x: torch.Tensor, folded: dict, *,
                          "CUDA device or the CPU")
     if any(t.data_ptr() % 16 for t in (x, *weights)):
         raise ValueError("fused_front: operands must be 16-byte aligned")
-    if b > MAX_BATCH:
-        raise ValueError(f"fused_front: batch {b} exceeds the kernel's {MAX_BATCH}")
     out = torch.empty((b, s // 2, s // 2, C1), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out

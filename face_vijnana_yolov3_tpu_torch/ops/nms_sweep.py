@@ -5,7 +5,8 @@ nms_sweep_pallas: boxes sorted by descending score; row i with score > 0
 zeroes every later row j whose IoU(i, j) >= iou_th; NaN IoU never
 suppresses. A CUDA tensor goes to the hand-written kernel in
 csrc/nms_sweep.cu (one block per image: all warps build the suppression
-bitmask in shared memory, then one warp scans it word by word); a CPU
+bitmask, then one warp scans it word by word; the mask lives in shared
+memory up to N = 1,024 and in a device-memory workspace above); a CPU
 tensor goes to `nms_sweep_reference`, the plain PyTorch version. There is
 no fallback between the two: a CUDA call that cannot build or launch raises.
 The threshold is rounded to f32 on every side (JAX and torch compare an f32
@@ -18,7 +19,23 @@ import torch
 
 from face_vijnana_yolov3_tpu_torch.ops.boxes import pairwise_iou
 
-MAX_N = 1024  # csrc/nms_sweep.cu: kMaxN, 32 bitmask words a row
+SMEM_MAX_N = 1024  # csrc/nms_sweep.cu: kSmemMaxN; larger N uses a workspace
+# Largest mask workspace one launch takes; a larger batch runs in chunks of
+# images (N = 4,096 takes 2 MiB an image).
+WORKSPACE_BYTES = 256 << 20
+
+
+def mask_words(n: int) -> int:
+    """uint32 words of one image's suppression mask (N rows of ceil(N/32))."""
+    return n * ((n + 31) // 32)
+
+
+def workspace_chunk(b: int, n: int) -> int:
+    """Images a launch takes: all of them for N <= SMEM_MAX_N (no
+    workspace), else as many as WORKSPACE_BYTES holds (at least one)."""
+    if n <= SMEM_MAX_N:
+        return b
+    return max(1, min(b, WORKSPACE_BYTES // (4 * mask_words(n))))
 
 
 def nms_sweep_reference(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
@@ -62,23 +79,28 @@ def nms_sweep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
         raise ValueError("nms_sweep: boxes and scores must be contiguous")
     if boxes_sorted.data_ptr() % 16:
         raise ValueError("nms_sweep: boxes must be 16-byte aligned (one float4 a box)")
-    if n > MAX_N:
-        raise ValueError(f"nms_sweep: N={n} exceeds the kernel's {MAX_N}")
     if b == 0 or n == 0:
         return scores_sorted.clone()
     from face_vijnana_yolov3_tpu_torch import kernels
 
     lib = kernels.load()
     out = torch.empty_like(scores_sorted)
+    chunk = workspace_chunk(b, n)
+    ws = None
+    if n > SMEM_MAX_N:
+        ws = torch.empty(chunk * mask_words(n), dtype=torch.int32,
+                         device=boxes_sorted.device)
     stream = torch.cuda.current_stream(boxes_sorted.device).cuda_stream
     with torch.cuda.device(boxes_sorted.device):
-        rc = lib.fvy_nms_sweep(
-            boxes_sorted.data_ptr(), scores_sorted.data_ptr(), out.data_ptr(),
-            b, n, float(iou_th), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"nms_sweep: kernel launch failed, CUDA error {rc}")
-    nms_sweep.launches += 1
+        for i in range(0, b, chunk):
+            rc = lib.fvy_nms_sweep(
+                boxes_sorted[i:].data_ptr(), scores_sorted[i:].data_ptr(),
+                out[i:].data_ptr(), None if ws is None else ws.data_ptr(),
+                min(chunk, b - i), n, float(iou_th), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"nms_sweep: kernel launch failed, CUDA error {rc}")
+            nms_sweep.launches += 1
     return out
 
 

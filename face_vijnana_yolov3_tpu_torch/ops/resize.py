@@ -46,10 +46,13 @@ def taps_to_matrix(idx: np.ndarray, w: np.ndarray, in_size: int) -> np.ndarray:
     return m
 
 
-def letterbox_taps(geom, image_size: int):
+def letterbox_taps(geom, image_size: int, dec_h: int | None = None,
+                   dec_w: int | None = None):
     """Fixed-shape cubic tap tables for one image's strict letterbox:
     rows/cols in the pad band keep weight 0 (the black border); rows/cols
-    inside [pad, pad+new) carry the (src → new) resize taps."""
+    inside [pad, pad+new) carry the (src → new) resize taps. dec_h/dec_w:
+    the staged pixels' dims when the JPEG was decoded at a reduced DCT
+    scale; the geometry stays the original dims' (resize.py:108-140)."""
 
     def one_axis(src, new, pad):
         idx = np.zeros((image_size, 4), np.int32)
@@ -59,15 +62,17 @@ def letterbox_taps(geom, image_size: int):
         w[pad : pad + new] = tw
         return idx, w
 
-    ri, rw = one_axis(geom.src_h, geom.new_h, geom.pad_t)
-    ci, cw = one_axis(geom.src_w, geom.new_w, geom.pad_l)
+    ri, rw = one_axis(dec_h or geom.src_h, geom.new_h, geom.pad_t)
+    ci, cw = one_axis(dec_w or geom.src_w, geom.new_w, geom.pad_l)
     return ri, rw, ci, cw
 
 
-def letterbox_matrices(geom, max_h: int, max_w: int, image_size: int):
+def letterbox_matrices(geom, max_h: int, max_w: int, image_size: int,
+                       dec_h: int | None = None, dec_w: int | None = None):
     """(row (S, max_h), col (S, max_w)) dense f32 cubic letterbox matrices for
-    one image staged top-left in a (max_h, max_w) buffer."""
-    ri, rw, ci, cw = letterbox_taps(geom, image_size)
+    one image staged top-left in a (max_h, max_w) buffer (dec_h/dec_w: see
+    letterbox_taps)."""
+    ri, rw, ci, cw = letterbox_taps(geom, image_size, dec_h, dec_w)
     return taps_to_matrix(ri, rw, max_h), taps_to_matrix(ci, cw, max_w)
 
 

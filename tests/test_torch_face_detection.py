@@ -229,8 +229,10 @@ def test_checkpoint_sidecar_and_refusals(slice_run, tmp_path):
     assert load_train_meta(str(tmp_path / "none.pt")) == {}
     sd = load_checkpoint(ckpt)
     assert sd["conv_0.weight"].shape == (32, 3, 3, 3)
-    for bad in ("face_detector.h5", str(tmp_path / "orbax_dir")):
-        with pytest.raises(ValueError, match="params_from_jax"):
+    # Orbax directories (and any other non-.pt, non-h5 path) are refused,
+    # naming the converter; Keras h5 loads (tests/test_torch_keras_h5.py).
+    for bad in (str(tmp_path / "orbax_dir"), "weights.npz"):
+        with pytest.raises(ValueError, match="orbax_to_pt"):
             load_checkpoint(bad)
 
 

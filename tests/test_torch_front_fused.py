@@ -241,16 +241,44 @@ def test_kernel_index_math_matches_the_plain_twin(weights, size):
     _bf16_close(torch.from_numpy(got), want.float().numpy())
 
 
+def _walk_tiles(batch, s, grid):
+    """The persistent kernel's tile walk in numpy (int64, as csrc/
+    front_fused.cu's `decode`): block k takes tiles k, k + grid, ... of
+    batch * ceil(S/16) * ceil(S/32); each tile → (image, p0, q0)."""
+    gs = s // 2
+    tiles_w, tiles_h = -(-gs // 16), -(-gs // 8)
+    tiles = np.int64(batch) * tiles_h * tiles_w
+    t = np.concatenate([np.arange(k, tiles, grid, dtype=np.int64) for k in range(grid)])
+    tx, t = t % tiles_w, t // tiles_w
+    return t // tiles_h, (t % tiles_h) * 8, tx * 16
+
+
+@pytest.mark.parametrize("s", [2, 4, 36])
+def test_tile_walk_covers_a_batch_above_65535(s):
+    """B = 65,537 (over the old 65,535 cap), at the smallest S the kernel
+    takes (2), the smallest TMA one (4) and a ragged one: the blocks' tiles
+    (a grid of 2 x 132) cover every image's 8 x 16 output tiles exactly once."""
+    batch = 65537
+    b, p0, q0 = _walk_tiles(batch, s, 264)
+    gs = s // 2
+    key = (b * -(-gs // 8) + p0 // 8) * -(-gs // 16) + q0 // 16
+    assert b.max() == batch - 1 and b.min() == 0
+    assert (p0 < gs).all() and (q0 < gs).all()
+    assert np.array_equal(np.sort(key), np.arange(key.size))
+
+
 def test_cuda_fused_front_matches_plain(weights):
     """On the card: the kernel against its plain twin (the bf16 tolerance
     above) at 64², at 416² with b = 1 (fewer tiles than SMs), 8 and 32 (many
     tiles a persistent block), 100² (ragged tiles) and 98² (S % 4 == 2: the
-    loader without TMA), and the launch counter moves."""
+    loader without TMA), at B = 65,537 (S = 2 and 4), and the launch counter
+    moves."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (csrc/front_fused.cu)")
     folded = {k: {n: t.cuda() for n, t in v.items()} for k, v in weights[2].items()
               if k in ("conv_0", "conv_1")}
-    for b, size in ((2, 64), (1, 416), (8, 416), (32, 416), (3, 100), (2, 98)):
+    for b, size in ((2, 64), (1, 416), (8, 416), (32, 416), (3, 100), (2, 98),
+                    (65537, 2), (65537, 4)):
         x = torch.from_numpy(_x(size, seed=6, b=b)).cuda()
         before = fused_front.launches
         got = fused_front(x, folded)

@@ -3,8 +3,9 @@
 conftest.py has already imported jax into this process, so the runtime check
 runs in a fresh interpreter: import the port, build a small detector and run
 f32, bf16 and int8 `detect_batch` on the CPU (the int8 one calibrates and runs
-the int8 convs and the fused residual blocks) and the fused-front trunk
-(ops/front_fused.py), then assert that neither `jax`
+the int8 convs and the fused residual blocks), the fused-front trunk
+(ops/front_fused.py) and one fake-quant training step, import the training,
+dataset, Keras-h5, native-loader and mAP modules, then assert that neither `jax`
 nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
 every source of the package and chip_smoke.py: no import of either, and no
 allow-list.
@@ -33,6 +34,12 @@ from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipelin
 from face_vijnana_yolov3_tpu_torch.core import checkpoints, weights
 from face_vijnana_yolov3_tpu_torch.ops.front_fused import apply_graph_folded_front
 from face_vijnana_yolov3_tpu_torch.utils import drawing, io
+from face_vijnana_yolov3_tpu_torch.api import evaluate
+from face_vijnana_yolov3_tpu_torch.core import keras_import
+from face_vijnana_yolov3_tpu_torch.data import native_loader, synthetic, uccs
+from face_vijnana_yolov3_tpu_torch.evals import detection
+from face_vijnana_yolov3_tpu_torch.models.darknet import split_state_dict
+from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
 
 conf = FdConf(weights_path="does_not_exist.weights")
 conf.nn_arch.image_size = 64
@@ -44,6 +51,13 @@ for precision in ("float32", "bfloat16", "int8"):
     assert cands.shape == (2, 4, 6) and counts.shape == (2,), (cands.shape, counts.shape)
 trunk = apply_graph_folded_front(fd.model.fold(), torch.from_numpy(x), fd.model.ops)
 assert trunk["trunk"].shape == (2, 2, 2, 1024), trunk["trunk"].shape
+params, state = split_state_dict(fd.model.state_dict())
+opt = optimizer.KerasAdam(1e-3)
+step = trainer.make_train_step(fd.model, opt, fakequant=True)
+gts = torch.zeros((2, 2, 2, 6))
+params, state, _, loss = step(params, state, opt.init(params), torch.from_numpy(x), gts,
+                              torch.ones(2))
+assert torch.isfinite(loss), loss
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "face_vijnana_yolov3_tpu"))
 assert not leaked, leaked

@@ -218,13 +218,39 @@ def test_fixed_tail_and_islands_skip_the_self_check(runs, tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("int8_qat_steps", 5), ("int8_bias_correct", True),
-    ("int8_calib_percentile", "msegrid"), ("bf16_front_mode", "int8")])
+    ("int8_qat_steps", 5), ("bf16_front_mode", "int8")])
 def test_unported_int8_options_raise(runs, knob, value):
     conf = _conf(FdConf, runs["testdir"], "x.csv")
     setattr(conf, knob, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_fd.FaceDetectorPipeline(conf, precision="int8", device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("int8_bias_correct", True), ("int8_calib_percentile", "msegrid")])
+def test_bias_correct_and_msegrid_knobs_calibrate(runs, tmp_path, knob, value):
+    """The two calibration knobs reach quantize_folded: the biases move by
+    the measured correction, or the scales are the msegrid calibrator's."""
+    kw = dict(model_loading=True, model_path=runs["ckpt"], int8_tail_auto=False,
+              int8_calib_percentile=99.99)
+    plain = port_fd.FaceDetectorPipeline(
+        _conf(FdConf, runs["testdir"], tmp_path / "x.csv", **kw),
+        precision="int8", device="cpu")
+    plain.calibrate_int8(runs["lb"])
+    kw[knob] = value
+    pfd = port_fd.FaceDetectorPipeline(
+        _conf(FdConf, runs["testdir"], tmp_path / "x.csv", **kw),
+        precision="int8", device="cpu")
+    pfd.calibrate_int8(runs["lb"])
+    if knob == "int8_bias_correct":
+        assert not torch.equal(pfd._qparams["conv_0"]["bias"], plain._qparams["conv_0"]["bias"])
+    else:
+        want = quant.calibrate_folded(pfd.model.fold(), torch.as_tensor(runs["lb"][:16]),
+                                      pfd.model.ops, percentile="msegrid")
+        for g, w in zip(pfd._qparams["act_scales"], want):
+            np.testing.assert_array_equal(g, w)
+    cands, counts = pfd.detect_batch(runs["lb"])
+    assert np.isfinite(cands).all() and counts.shape == (N_IMAGES,)
 
 
 def test_default_device_is_the_card(runs, monkeypatch, tmp_path):

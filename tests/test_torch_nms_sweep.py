@@ -17,8 +17,12 @@ import torch
 from face_vijnana_yolov3_tpu.ops.pallas_nms import nms_sweep_pallas
 from face_vijnana_yolov3_tpu_torch.ops.boxes import pairwise_iou
 from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import (
+    SMEM_MAX_N,
+    WORKSPACE_BYTES,
+    mask_words,
     nms_sweep,
     nms_sweep_reference,
+    workspace_chunk,
 )
 
 torch.set_num_threads(2)
@@ -56,9 +60,11 @@ def _sorted_case(kind: str, b: int = 3, n: int = 169, seed: int = 0):
 def _emulate_bitmask_sweep(boxes, scores, th):
     """csrc/nms_sweep.cu in numpy: the mask words (row i with score > 0,
     words w >= i // 32, bit j set iff j > i and IoU(i, j) >= th with box i
-    as operand a), then one scan word by word: lane v's removed word, the
-    word's rows resolved in order, the alive rows' mask words ORed into the
-    words >= w; out = removed ? 0 : s."""
+    as operand a), then one scan word by word: the removed words (lane v's
+    register for N <= 1024; for N > 1024 `nms_sweep_global_kernel`'s shared
+    array, ceil(N/32) words, with the mask in a workspace whose unwritten
+    words hold garbage), the word's rows resolved in order, the alive rows'
+    mask words ORed into the words >= w; out = removed ? 0 : s."""
     th = np.float32(th)
     iou = pairwise_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
     b, n = scores.shape
@@ -66,17 +72,17 @@ def _emulate_bitmask_sweep(boxes, scores, th):
     out = np.empty_like(scores)
     for k in range(b):
         s = scores[k]
-        mask = np.full((n, words), 0xDEADBEEF, np.uint64)  # unwritten words
+        mask = np.full((n, words), 0xDEADBEEF, np.uint32)  # unwritten words
         for i in range(n):
             if not s[i] > 0:
                 continue
-            for w in range(i // 32, words):
-                j = 32 * w + np.arange(32)
-                ok = (j > i) & (j < n)
-                hit = np.zeros(32, bool)
-                with np.errstate(invalid="ignore"):
-                    hit[ok] = iou[k, i, j[ok]] >= th
-                mask[i, w] = int((hit.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum())
+            w0 = i // 32
+            j = np.arange(32 * w0, 32 * words)
+            ok = (j > i) & (j < n)
+            hit = np.zeros(j.size, bool)
+            with np.errstate(invalid="ignore"):
+                hit[ok] = iou[k, i, j[ok]] >= th
+            mask[i, w0:] = np.packbits(hit, bitorder="little").view("<u4")
         removed = [0] * words
         for w in range(words):
             positive = sum(1 << l for l in range(32) if 32 * w + l < n and s[32 * w + l] > 0)
@@ -86,12 +92,11 @@ def _emulate_bitmask_sweep(boxes, scores, th):
                 alive |= 1 << bit
                 cand &= ~(1 << bit)
                 cand &= ~int(mask[32 * w + bit, w])
-            for v in range(w, words):
-                a = alive
-                while a:
-                    bit = (a & -a).bit_length() - 1
-                    removed[v] |= int(mask[32 * w + bit, v])
-                    a &= a - 1
+            rows = [32 * w + bit for bit in range(32) if (alive >> bit) & 1]
+            if rows:
+                folded = np.bitwise_or.reduce(mask[rows, w:], axis=0)
+                for v in range(w, words):
+                    removed[v] |= int(folded[v - w])
         for j in range(n):
             out[k, j] = 0.0 if (removed[j // 32] >> (j % 32)) & 1 else s[j]
     return out
@@ -116,23 +121,41 @@ def test_reference_matches_pallas_interpret(kind, th):
 EMULATED = [("float", 1), ("float", 31), ("float", 32), ("integer", 33),
             ("integer", 169), ("degenerate", 169), ("nonfinite", 169), ("absent", 169),
             ("ties", 169),
-            ("float", 1024)]
+            ("float", 1024), ("float", 1025), ("integer", 1089), ("nonfinite", 1089),
+            ("float", 4096)]
 
 
 @pytest.mark.parametrize("kind,n", EMULATED)
 def test_bitmask_walk_matches_plain_and_pallas(kind, n):
     """The kernel's index math (mask words, the diagonal, N not a multiple of
     32, the word-by-word scan) must reproduce the sweep bit for bit."""
-    boxes, scores = _sorted_case(kind, b=1 if n == 1024 else 2, n=n, seed=n)
-    if kind == "float" and n == 1024:
+    boxes, scores = _sorted_case(kind, b=1 if n >= 1024 else 2, n=n, seed=n)
+    if kind == "float" and n >= 1024:
         boxes[..., 2:] = boxes[..., :2] + (boxes[..., 2:] - boxes[..., :2]) / 4
     got = _emulate_bitmask_sweep(boxes, scores, 0.45)
     want = nms_sweep_reference(torch.from_numpy(boxes), torch.from_numpy(scores), 0.45)
     np.testing.assert_array_equal(got, want.numpy())
-    if kind != "nonfinite":  # the Pallas path maps an infinite IoU to -1
+    if kind != "nonfinite" and n <= 1089:  # the Pallas path maps an infinite IoU to -1
         np.testing.assert_array_equal(got, _pallas(boxes, scores, 0.45))
     if kind in ("degenerate", "absent"):
         np.testing.assert_array_equal(got, scores)
+
+
+@pytest.mark.parametrize("b,n", [(128, 169), (1, 1024), (32, 1025), (32, 1600),
+                                 (300, 4096), (3, 65536)])
+def test_workspace_chunks_cover_the_batch(b, n):
+    """N <= 1024 launches once with no workspace; above, each launch's mask
+    workspace (images x N x ceil(N/32) words) stays within WORKSPACE_BYTES,
+    or is one image, and the launches cover every image once."""
+    chunk = workspace_chunk(b, n)
+    if n <= SMEM_MAX_N:
+        assert chunk == b
+        return
+    assert 1 <= chunk <= b
+    assert chunk == 1 or 4 * chunk * mask_words(n) <= WORKSPACE_BYTES
+    starts = list(range(0, b, chunk))
+    sizes = [min(chunk, b - i) for i in starts]
+    assert sum(sizes) == b and all(s > 0 for s in sizes)
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_version():
@@ -157,6 +180,10 @@ def test_cuda_kernel_matches_plain_version():
              for b in (1, 32, 128) for n in (1, 31, 32, 33, 169, 1024)]
     cases += [(kind, b, 169) for kind in ("nonfinite", "absent", "ties")
               for b in (1, 32, 128)]
+    # N > 1024: the mask in a device-memory workspace (image_size >= 1,056)
+    cases += [(kind, b, n) for kind in ("float", "integer", "degenerate", "nonfinite",
+                                        "absent", "ties")
+              for b in (1, 32) for n in (1025, 1089, 1600, 4096)]
     for kind, b, n in cases:
         boxes, scores = _sorted_case(kind, b=b, n=n, seed=2)
         cb, cs = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()

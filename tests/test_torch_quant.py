@@ -305,13 +305,16 @@ def test_detection_box_f1_scorer_matches_jax(case):
 
 
 def test_unported_calibration_options_raise(setup):
+    """Every calibration of the JAX package is ported (msegrid and bias
+    correction: tests/test_torch_calib.py); what is left to refuse is a
+    calibration name that neither package knows."""
     jm, _, pm, x = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="msegrid"):
         quant.calibrate_folded(pm.fold(), torch.from_numpy(x), jm.ops,
-                               percentile="msegrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                               percentile="bogus")
+    with pytest.raises(ValueError, match="mutually exclusive"):
         quant.quantize_folded(pm.fold(), torch.from_numpy(x), jm.ops,
-                              bias_correct=True)
+                              bias_correct=True, bf16_ops=(14,))
 
 
 def test_to_device_takes_inverse_scales_in_float64():
