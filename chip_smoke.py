@@ -71,7 +71,20 @@ which raises on failure (exit code != 0):
               and peak memory (f32 b32, bf16 b128) with a profiler split of
               a step; the trained checkpoint served at f32 and int8 (A0, A
               and B must launch), evaluate + the mAP harness (AP printed,
-              not gated); which JPEG decoder the device-letterbox path ran.
+              not gated); which JPEG decoder the device-letterbox path ran;
+11. identify — face identification at 416² (FI_*): the seeded synthetic
+              identity tree through the CLI (data, fid_db + the registry,
+              test at f32 with host crops and with device_roi), hand-made
+              boxes through the f32, int8 (nested int8 detector with the
+              block kernel) and bf16 pipelines: the main path, whose launch
+              counts (B, A0 and A must move) go to `launches_identify`;
+              then the card's identify rows vs the CPU port's, device ROI
+              crops vs host crops, the int8 embed trunk card vs CPU bit for
+              bit on the same qparams, the bf16 embed's guard; embed img/s
+              at 64 crops (f32, bf16, int8) and ms per identified chunk on
+              the device-ROI path; one f32 triplet step card vs CPU, triplet
+              training (bf16 b32, f32 b8 with the loss falling; semi_hard),
+              triplets/s and peak memory, held-out top-1 (not gated).
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -80,6 +93,7 @@ as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import importlib.util
 import itertools
 import json
 import os
@@ -180,6 +194,42 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_TOL = 5e-3
 STEP_PARAM_GRAD_TOL = 0.1
 STEP_STATE_TOL = 1e-4
+# [identify]: the seeded synthetic identity tree (416² images, faces of side
+# 90-199), FI_SUBJECTS subjects x FI_TRAIN_PER_SUBJ training faces, and
+# FI_HOLD_PER_SUBJ held out; sim_th 2.0, the largest L2 distance between
+# unit vectors, so that every ROI writes a row.
+FI_SUBJECTS, FI_TRAIN_PER_SUBJ, FI_HOLD_PER_SUBJ = 8, 4, 2
+FI_SIM_TH = 2.0
+FI_ROI_IMAGES = 4  # hand-made boxes on this many images, FI_ROI_BOXES each
+FI_ROI_BOXES = 6
+FI_EMBED_B = 64  # embed img/s at this many crops (the JAX package's largest bucket)
+FI_INT8_CHECK_B = 4  # int8 embed trunk, card vs CPU plain path
+# Card vs CPU f32 embeddings: cuDNN and the CPU sum each conv in another
+# order (HEAD_TOL's reason); a registry distance moves by at most the sum of
+# the two embeddings' differences. A card choice of registry row counts as
+# equal when its CPU distance is within FI_DIST_TOL of the CPU minimum (a tie).
+FI_DIST_TOL = 1e-4
+# Device ROI crops vs cv2's cubic letterbox of the same crops as f32 pixels:
+# the f32 rule of tests/test_roi.py (3.6e-7 measured on the CPU at 416²).
+# The host path letterboxes f64 pixels (crop / 255), where cv2 takes
+# another coefficient path: 1.2e-5 from the JAX package's device crops at
+# 416² on the CPU, 7e-5 at 1280 wide (README); that gap within FI_CROP_F64_TOL.
+FI_CROP_TOL = 3e-6
+FI_CROP_F64_TOL = 1e-4
+# Triplet training runs (label, precision, mining, batch, epochs), lr 1e-4.
+FI_TRAIN_RUNS = (("bf16", "bfloat16", "random", 32, 6), ("f32", "float32", "random", 8, 3),
+                 ("semi_hard", "float32", "semi_hard", 16, 1))
+FI_TRAIN_LR = 1e-4
+FI_TIMING_STEPS = 6
+# One f32 triplet step at b2 (6 images), card vs CPU port: the loss within
+# 1e-4 abs (a difference of distances between unit vectors, each within
+# the card-vs-CPU embedding error) and the gradients within STEP_GRAD_TOL
+# of their norm.
+FI_STEP_LOSS_ATOL = 1e-4
+# mode=fid_db writes the reference's HDF5 (subject_facial_ids.h5) through
+# h5py, which a machine may lack; then the registry alone embeds the same
+# subject faces.
+HAVE_H5PY = importlib.util.find_spec("h5py") is not None
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
@@ -1250,6 +1300,377 @@ def train_phase(tmp, fdm, card, dev):
     return rates, launches
 
 
+def _tie_ok(pick, e_ref, reg) -> bool:
+    """Each `pick` (registry rows chosen from other embeddings) is the
+    minimum for the reference embeddings `e_ref`, or within FI_DIST_TOL of
+    it (a tie)."""
+    d = torch.cdist(e_ref.double(), reg.double())
+    chosen = d.gather(1, pick.long()[:, None])[:, 0]
+    return bool((chosen - d.min(1).values <= FI_DIST_TOL).all())
+
+
+def identify_phase(tmp, card, dev):
+    """Face identification on the card (phase 11): the subject DB (data,
+    fid_db and the registry) of a seeded synthetic identity tree through
+    the CLI, test mode at f32 on the host-crop and device-ROI paths,
+    hand-made boxes through the f32, int8 and bf16 pipelines (the main
+    path, with the launch counts zeroed before it and read after it); then
+    card vs CPU port (identify rows, device crops vs host crops, the int8
+    embed trunk bit for bit on the same qparams), embed and identify
+    timings, a short triplet training (one f32 step card vs CPU, bf16 mixed
+    at b32, f32 at b8, semi_hard), triplets/s and peak memory, and the
+    held-out top-1 after training (printed, not gated). Returns (launches,
+    {metric: value})."""
+    import random
+
+    import pandas as pd
+
+    from face_vijnana_yolov3_tpu_torch.api import face_identification as fim
+    from face_vijnana_yolov3_tpu_torch.api.config import load_conf
+    from face_vijnana_yolov3_tpu_torch.convert import (
+        identifier_params_from_jax,
+        params_from_jax,
+    )
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import load_checkpoint, save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.data import facedb, synthetic
+    from face_vijnana_yolov3_tpu_torch.models import darknet, quant
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.models.identifier import (
+        FaceIdentifierModel,
+        triplet_step_loss,
+    )
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_int8
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import fused_front
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+    from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
+    from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+
+    fim.DEBUG = False
+    S = IMAGE_SIZE
+    root = os.path.join(tmp, "fi")
+    holdout = synthetic.make_fi_tree(
+        root, FI_SUBJECTS, seed=SEED, hold_per_subj=FI_HOLD_PER_SUBJ,
+        train_per_subj=FI_TRAIN_PER_SUBJ, image_size=S,
+        face_sizes=(S * 90 // 416, S * 200 // 416))
+    train_dir = os.path.join(root, "training")
+    gt = pd.read_csv(os.path.join(train_dir, "training.csv"))
+
+    # Seeded random weights with perturbed BN statistics: the identifier's
+    # int8 trunk then carries live values, and the detector finds some boxes
+    # of non-zero size (as in [int8]).
+    fi_model = FaceIdentifierModel(image_size=S, device="cpu")
+    params, state = fi_model.init_params(SEED + 7)
+    darknet.perturb_batchnorm(params, state, fi_model.ops, SEED + 8)
+    ops = fi_model.ops
+    del fi_model
+    fi_ckpt = os.path.join(tmp, "fi_random.pt")
+    save_checkpoint(fi_ckpt, identifier_params_from_jax(params, state),
+                    meta={"seed": SEED + 7})
+    del params, state
+    fd_model = FaceDetectorModel(image_size=S, device="cpu")
+    params, state = fd_model.init_params(SEED)
+    darknet.perturb_batchnorm(params, state, fd_model.ops, SEED + 1)
+    fd_ckpt = os.path.join(tmp, "fd_random_fi.pt")
+    save_checkpoint(fd_ckpt, params_from_jax(params, state))
+    del fd_model, params, state
+    conf_path = os.path.join(tmp, "conf_fi.json")
+    csvs = {k: os.path.join(tmp, f"solution_fi_{k}.csv") for k in ("host", "roi", "int8")}
+    with open(conf_path, "w") as f:
+        json.dump({
+            "fi_conf": {"raw_data_path": root, "test_path": train_dir,
+                        "output_file_path": csvs["host"], "model_loading": True,
+                        "model_path": fi_ckpt, "hps": {"sim_th": FI_SIM_TH},
+                        "nn_arch": {"image_size": S, "dense1_dim": 64}},
+            "fd_conf": {"model_loading": True, "model_path": fd_ckpt,
+                        "int8_pallas_blocks": True, "int8_tail_auto": False,
+                        "hps": {"face_conf_th": 0.05, "batch_size": 8},
+                        "nn_arch": {"image_size": S}},
+        }, f)
+
+    # Hand-made boxes: each image's face box jittered, two random boxes, one
+    # with a corner at 0 (the slice wraps) and a zero-size one.
+    brng = np.random.default_rng(SEED + 9)
+    names = sorted(gt["FILE"])[:FI_ROI_IMAGES]
+    images = [imread(os.path.join(train_dir, n)) for n in names]
+    boxes_list = []
+    for n in names:
+        x, y, w, h = gt.loc[gt["FILE"] == n, ["FACE_X", "FACE_Y", "FACE_WIDTH",
+                                              "FACE_HEIGHT"]].iloc[0]
+        rows = [[x + brng.uniform(-6, 6), y + brng.uniform(-6, 6),
+                 x + w + brng.uniform(-6, 6), y + h + brng.uniform(-6, 6)]
+                for _ in range(FI_ROI_BOXES - 4)]
+        for _ in range(2):
+            x0, y0 = brng.uniform(0, S * 0.7, 2)
+            rows.append([x0, y0, x0 + brng.uniform(S * 0.05, S * 0.3),
+                         y0 + brng.uniform(S * 0.05, S * 0.3)])
+        rows += [[0.0, y, x + w, y + h], [x, y, x, y]]
+        bx = np.clip(np.asarray(rows, np.float64), 0, S)
+        boxes_list.append(np.concatenate([bx, brng.uniform(0.05, 1, (len(rows), 1))], 1))
+
+    # ---- the main path: counts zeroed just before, read just after.
+    kernel_fns = (nms_sweep, conv_int8, block_int8, fused_front)
+    cwd = os.getcwd()
+    os.chdir(root)  # the subject DB's CSV, h5 and pickles land in the working directory
+    try:
+        for k in kernel_fns:
+            k.launches = 0
+        t0 = time.perf_counter()
+        assert fim.main([f"--conf={conf_path}", "fi_conf.mode=data"]) is None
+        if HAVE_H5PY:
+            fi = fim.main([f"--conf={conf_path}", "fi_conf.mode=fid_db"])
+        else:
+            print("[identify] h5py is not installed on this machine: mode=fid_db "
+                  "(it writes subject_facial_ids.h5) is skipped; the registry embeds "
+                  "the same subject faces")
+            fi = fim.FaceIdentifierPipeline(load_conf(conf_path))
+        registry = fi.register_facial_ids()
+        fim.main([f"--conf={conf_path}", "fi_conf.mode=test"])
+        fim.main([f"--conf={conf_path}", "fi_conf.mode=test", "fi_conf.device_roi=true",
+                  f"fi_conf.output_file_path={csvs['roi']}"])
+        subject_ids, reg = fi._load_registry()
+        reg_dev = torch.from_numpy(reg).to(dev)
+        host_rows = [fi._identify_image(im, bx, subject_ids, reg)
+                     for im, bx in zip(images, boxes_list)]
+        roi_rows = fi._identify_chunk_device(images, boxes_list, subject_ids, reg_dev)
+        conf8 = load_conf(conf_path)
+        conf8.fi_conf.output_file_path = csvs["int8"]
+        fi8 = fim.FaceIdentifierPipeline(conf8, precision="int8")
+        fi8.test()
+        rows8 = fi8._identify_chunk_device(images, boxes_list, subject_ids, reg_dev)
+        fib = fim.FaceIdentifierPipeline(load_conf(conf_path), precision="bfloat16")
+        rowsb = fib._identify_chunk_device(images, boxes_list, subject_ids, reg_dev)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernel_fns}
+        main_s = time.perf_counter() - t0
+        db = pd.read_csv("subject_image_db.csv")
+    finally:
+        os.chdir(cwd)
+    sol = {k: [r.split(",") for r in open(v).read().splitlines()] for k, v in csvs.items()}
+    n_rows = {k: len(v) for k, v in sol.items()}
+    print(f"[identify] data + {'fid_db + ' if HAVE_H5PY else ''}registry ({len(db)} "
+          f"subject faces, {len(registry)} "
+          f"subjects) + test mode (f32 host crops, f32 device_roi, int8) through the CLI, "
+          f"hand-made boxes ({sum(len(b) for b in boxes_list)} on {len(images)} images) at "
+          f"f32 (host and device crops), int8 and bf16, {S}² on {card}: {main_s:.1f} s; "
+          f"solution_fi.csv rows {n_rows}, subject ids of the device_roi CSV equal to "
+          f"the host one's on {sum(a[1] == b[1] for a, b in zip(sol['roi'], sol['host']))}; "
+          f"launches {launches}")
+    if min(launches[k] for k in ("nms_sweep", "conv_int8", "block_int8")) == 0:
+        raise AssertionError(f"[identify] the FI path skipped a kernel: {launches}")
+    if len(db) != FI_SUBJECTS * FI_TRAIN_PER_SUBJ or len(registry) != FI_SUBJECTS:
+        raise AssertionError("[identify] the subject DB is incomplete")
+    # The two crop paths write the same rows (files, boxes, scores); their
+    # subject ids are held below on hand-made boxes, where ties are visible.
+    if [r[:1] + r[2:] for r in sol["roi"]] != [r[:1] + r[2:] for r in sol["host"]]:
+        raise AssertionError("[identify] the device_roi CSV's rows differ from the host one's")
+
+    # ---- card vs CPU port on the hand-made boxes, f32.
+    fi_cpu = fim.FaceIdentifierPipeline(load_conf(conf_path), device="cpu")
+    cpu_rows = [fi_cpu._identify_image(im, bx, subject_ids, reg)
+                for im, bx in zip(images, boxes_list)]
+    crops, crops32 = [], []
+    for im, bx in zip(images, boxes_list):
+        for b in bx:
+            l, t, r, bb = (int(v) for v in b[:4])
+            c = im[(t - 1):(bb - 1), (l - 1):(r - 1)]
+            if c.shape[0] and c.shape[1]:
+                crops.append(letterbox_host(c / 255, S, "cubic")[0])
+                crops32.append(letterbox_host((c / 255).astype(np.float32), S, "cubic")[0])
+    crops = np.asarray(crops, np.float32)
+    e_card = fi.embed_device(crops)
+    e_cpu = fi_cpu.embed_device(crops)
+    reg_cpu = torch.from_numpy(reg)
+    i_card, d_card = match_embeddings(e_card, reg_dev)
+    i_cpu, d_cpu = match_embeddings(e_cpu, reg_cpu)
+    emb_err = float((e_card.cpu() - e_cpu).abs().max())
+    dist_err = float((d_card.cpu() - d_cpu).abs().max())
+    flat = [r for rows in host_rows for r in rows]
+    flat_cpu = [r for rows in cpu_rows for r in rows]
+    same_ids = [a["subject_id"] == b["subject_id"] for a, b in zip(flat, flat_cpu)]
+    print(f"[identify] f32 host crops, card vs CPU port: {len(flat)} rows vs "
+          f"{len(flat_cpu)}, subject ids equal on {sum(same_ids)}; embeddings max |diff| "
+          f"{emb_err:.3g}, registry distances {dist_err:.3g} (tol {FI_DIST_TOL})")
+    if ([(a["box_index"], a["xmin"]) for a in flat] != [(b["box_index"], b["xmin"])
+                                                        for b in flat_cpu]
+            or len(flat) != len(crops) or dist_err > FI_DIST_TOL
+            or not _tie_ok(i_card.cpu(), e_cpu, reg_cpu)):
+        raise AssertionError("[identify] the card's identify rows disagree with the CPU's")
+
+    # Device crops (ops/roi.py on the card) vs the host crops.
+    owners, crops_of = fi._roi_plan(images, boxes_list)
+    d_crops = crops_of(slice(0, len(owners)))
+    crop_err = float((d_crops.cpu() - torch.from_numpy(np.asarray(crops32))).abs().max())
+    crop_err64 = float((d_crops.cpu() - torch.from_numpy(crops)).abs().max())
+    flat_roi = [r for rows in roi_rows for r in rows]
+    e_roi = fi.embed_device(d_crops)
+    i_roi, _ = match_embeddings(e_roi, reg_dev)
+    print(f"[identify] device_roi crops on the card vs cv2 on the same crops: {len(owners)} "
+          f"ROIs, max |diff| {crop_err:.3g} as f32 pixels (tol {FI_CROP_TOL}), "
+          f"{crop_err64:.3g} as the host path's f64 pixels (tol {FI_CROP_F64_TOL}); "
+          f"device-ROI rows {len(flat_roi)}, "
+          f"subject ids equal to the host path's on "
+          f"{sum(a['subject_id'] == b['subject_id'] for a, b in zip(flat_roi, flat))}")
+    if (crop_err > FI_CROP_TOL or crop_err64 > FI_CROP_F64_TOL
+            or [r["box_index"] for r in flat_roi] != [r["box_index"]
+                                                                         for r in flat]
+            or not _tie_ok(i_roi.cpu(), e_card.cpu(), reg_cpu)):
+        raise AssertionError("[identify] device-ROI crops or rows disagree with the host path")
+
+    # int8: the embed trunk (A0 on every conv) on the card vs the CPU plain
+    # path, on the same qparams: an integer program, so bit-identical.
+    q_card = fi8._q_embed
+    q_cpu = quant.to_device(q_card, "cpu")
+    x8 = d_crops[:FI_INT8_CHECK_B]
+    with torch.inference_mode():
+        t_card = quant.apply_graph_quant(q_card, x8, ops, fused_blocks=False)["trunk"]
+        t_cpu = quant.apply_graph_quant(q_cpu, x8.cpu(), ops, fused_blocks=False)["trunk"]
+    torch.cuda.synchronize()
+    flat8 = [r for rows in rows8 for r in rows]
+    print(f"[identify] int8 embed trunk (13x13x1024) on {x8.shape[0]} crops, card vs CPU "
+          f"plain path: torch.equal {torch.equal(t_card.cpu(), t_cpu)}, "
+          f"{float((t_cpu != 0).float().mean()):.1%} non-zero; int8 rows {len(flat8)}, "
+          f"subject ids equal to f32's on "
+          f"{sum(a['subject_id'] == b['subject_id'] for a, b in zip(flat8, flat_roi))}")
+    if not torch.equal(t_card.cpu(), t_cpu):
+        raise AssertionError("[identify] the int8 embed trunk differs between card and CPU")
+    # bf16: the folded trunk with the f32 front guard (bf16_f32_front 2).
+    e_b = fib.embed_device(d_crops)
+    b_err = float((e_b - e_roi).abs().max())
+    norm_err = float((e_b.norm(dim=1) - 1).abs().max())
+    flatb = [r for rows in rowsb for r in rows]
+    print(f"[identify] bf16 embed, f32 front guard {fib.conf.bf16_f32_front}: max |diff| "
+          f"to f32 {b_err:.3g} (unit vectors), | |e| - 1 | {norm_err:.2g}; bf16 rows "
+          f"{len(flatb)}, subject ids equal to f32's on "
+          f"{sum(a['subject_id'] == b['subject_id'] for a, b in zip(flatb, flat_roi))}")
+    if int(fib.conf.bf16_f32_front) != 2 or norm_err > 1e-3 or not torch.isfinite(e_b).all():
+        raise AssertionError("[identify] the bf16 embed is off")
+    del fi_cpu, q_cpu, t_card, t_cpu
+    torch.cuda.empty_cache()
+
+    # ---- timings: embed img/s at FI_EMBED_B crops, ms per identified chunk.
+    rates = {}
+    reps = -(-FI_EMBED_B // len(owners))
+    x64 = torch.cat([d_crops] * reps)[:FI_EMBED_B].contiguous()
+    for label, pipe in (("f32", fi), ("bf16", fib), ("int8", fi8)):
+        ms = cuda_ms(lambda: pipe._embed_tensor(x64), 5, warmup=2)
+        rates[f"embed_img_s_{label}"] = FI_EMBED_B / (np.median(ms) / 1e3)
+        print(f"[identify] embed {label} b={FI_EMBED_B} at {S}² on {card}: "
+              f"{rates[f'embed_img_s_{label}']:.1f} img/s; {quartiles(ms)}")
+    for label, pipe in (("f32", fi), ("int8", fi8)):
+        ms = cuda_ms(lambda: pipe._identify_chunk_device(images, boxes_list, subject_ids,
+                                                         reg_dev), 5, warmup=1)
+        rates[f"roi_chunk_ms_{label}"] = float(np.median(ms))
+        print(f"[identify] device-ROI identify of one chunk ({len(images)} images, "
+              f"{len(owners)} ROIs: crops, embed, match, rows) {label} on {card}: "
+              f"{quartiles(ms)}")
+    del x64, fi8, fib
+    torch.cuda.empty_cache()
+
+    # ---- triplet training.
+    os.chdir(root)
+    try:
+        ds = facedb.TripletDataset(root, rng=np.random.default_rng(SEED),
+                                   shuffle_rng=random.Random(SEED),
+                                   pairs_pickle=os.path.join(tmp, "fi_pairs.pickle"))
+        sd = load_checkpoint(fi_ckpt)
+        res = {}
+        a, p, n = ds.batch(0, 2)
+        w = torch.ones(2)
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = fi.model if name == "card" else FaceIdentifierModel(image_size=S,
+                                                                        device="cpu")
+            pp, ss = darknet.split_state_dict({k: v.to(device) for k, v in sd.items()})
+            leaves = {k: v.clone().requires_grad_(True) for k, v in pp.items()}
+            out, _ = model.triplet_forward(leaves, ss, *(torch.from_numpy(v).to(device)
+                                                         for v in (a, p, n)))
+            loss = triplet_step_loss(out, w.to(device), 64)
+            loss.backward()
+            res[name] = (float(loss.detach()), {k: v.grad.cpu() for k, v in leaves.items()})
+            del leaves, out, loss
+        (lc, gc), (lh, gh) = res["card"], res["cpu"]
+        g_tot = sum(float(g.norm()) ** 2 for g in gh.values()) ** 0.5
+        g_diff = sum(float((gc[k] - g).norm()) ** 2 for k, g in gh.items()) ** 0.5
+        print(f"[identify] one f32 triplet step at b2 ({S}², 6 images), card vs CPU port "
+              f"on {card}: loss {lc:.6f} vs {lh:.6f} (|diff| {abs(lc - lh):.2g}, tol "
+              f"{FI_STEP_LOSS_ATOL}); gradients {g_diff / g_tot:.2g} of their norm "
+              f"{g_tot:.4g} (tol {STEP_GRAD_TOL})")
+        if abs(lc - lh) > FI_STEP_LOSS_ATOL or g_diff > STEP_GRAD_TOL * g_tot:
+            raise AssertionError("[identify] the card's triplet step disagrees with the CPU's")
+        del res, gc, gh
+        torch.cuda.empty_cache()
+
+        trained = {}
+        for label, precision, mining, b, epochs in FI_TRAIN_RUNS:
+            conf = load_conf(conf_path)
+            c = conf.fi_conf
+            c.hps.batch_size, c.hps.epochs, c.hps.lr = b, epochs, FI_TRAIN_LR
+            c.negative_mining = mining
+            pipe = fim.FaceIdentifierPipeline(conf, precision=precision, seed=SEED)
+            c.model_path = os.path.join(tmp, f"fi_trained_{label}.pt")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            hist = [json.loads(line)["loss"] for line in open(c.model_path + "_history.jsonl")]
+            steps = len(hist) // epochs
+            first, last = np.mean(hist[:steps]), np.mean(hist[-steps:])
+            print(f"[identify] triplet training {label} ({precision}, {mining}) b={b} "
+                  f"({3 * b} images a step), {epochs} epochs of {steps} steps on "
+                  f"{len(ds)} triplets, {card}: epoch mean loss {first:.5f} -> {last:.5f} "
+                  f"(steps {', '.join(f'{v:.4f}' for v in hist)}); {wall:.1f} s with "
+                  f"finalize_bn and the save; peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            if not np.isfinite(hist).all() or (epochs > 1 and not last < first):
+                raise AssertionError(f"[identify] {label}: the triplet loss did not fall "
+                                     f"({first} -> {last})")
+            trained[label] = pipe
+            torch.cuda.empty_cache()
+
+        # triplets/s: the step on device-resident batches.
+        for label, dtype, b in (("bf16", torch.bfloat16, 32), ("f32", torch.float32, 8)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pp, ss = darknet.split_state_dict({k: v.to(dev) for k, v in sd.items()})
+            opt = optimizer.KerasAdam(FI_TRAIN_LR)
+            step = trainer.make_triplet_step(fi.model, opt, compute_dtype=dtype)
+            apn = [torch.from_numpy(v).to(dev).to(dtype) for v in ds.batch(0, b)]
+            carry = [pp, ss, opt.init(pp)]
+            wb = torch.ones(b, device=dev)
+
+            def run():
+                carry[0], carry[1], carry[2], _ = step(*carry, *apn, wb)
+
+            ms = cuda_ms(run, FI_TIMING_STEPS, warmup=2)
+            rates[f"triplets_s_{label}_b{b}"] = b / (np.median(ms) / 1e3)
+            rates[f"train_peak_gib_{label}_b{b}"] = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[identify] triplets/s {label} b={b} ({3 * b} images a step) at {S}² "
+                  f"on {card}: {rates[f'triplets_s_{label}_b{b}']:.1f} triplets/s "
+                  f"({3 * rates[f'triplets_s_{label}_b{b}']:.1f} img/s); step "
+                  f"{quartiles(ms)}; peak {rates[f'train_peak_gib_{label}_b{b}']:.1f} GiB")
+            del carry, apn, step
+        torch.cuda.empty_cache()
+
+        # Held-out top-1: registries from the untrained and the bf16-trained
+        # embedders (printed, not gated: a few epochs on a few identities).
+        h_crops, h_sids = synthetic.holdout_crops(holdout, S)
+        for label, pipe in (("untrained f32", fi), ("bf16-trained", trained["bf16"])):
+            reg_t = pipe.register_facial_ids()
+            sids = list(reg_t)
+            idx, _ = match_embeddings(pipe.embed_device(h_crops),
+                                      torch.from_numpy(np.asarray([reg_t[s] for s in sids],
+                                                                  np.float32)))
+            top1 = float(np.mean(np.asarray([sids[int(i)] for i in idx.cpu()]) == h_sids))
+            rates[f"heldout_top1_{label.split()[0].replace('-', '_')}"] = top1
+            print(f"[identify] held-out top-1, {label}: {top1:.3f} on {len(h_sids)} faces "
+                  f"of {FI_SUBJECTS} subjects (chance {1 / FI_SUBJECTS:.3f}; not gated)")
+    finally:
+        os.chdir(cwd)
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -1521,7 +1942,10 @@ def main() -> int:
         calib_phase(card, dev, rng)
         print(f"[calib] done at {time.perf_counter() - t_start:.0f} s")
         train_rates, train_launches = train_phase(tmp, fdm, card, dev)
-        print(f"[train] done at {time.perf_counter() - t_start:.0f} s; total run "
+        print(f"[train] done at {time.perf_counter() - t_start:.0f} s")
+        torch.cuda.empty_cache()
+        fi_launches, fi_rates = identify_phase(tmp, card, dev)
+        print(f"[identify] done at {time.perf_counter() - t_start:.0f} s; total run "
               f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
@@ -1537,6 +1961,7 @@ def main() -> int:
         "bound_ms": nms["bound_ms"],
         "bound_by": nms["bound_by"],
         "library_ms": None,
+        "launches_identify": fi_launches["nms_sweep"],
         "events_ms": nms["events_ms"],
         f"ms_b{NMS_TIMING_B2}": nms_rec[NMS_TIMING_B2]["ms"],
         **{f"{key}_n{n}_b{NMS_TIMING_B2}": rec[key] for n, rec in nms_large.items()
@@ -1558,6 +1983,7 @@ def main() -> int:
             "launches": n, "max_abs_err": err,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "launches_identify": fi_launches[name],
         })
         if name == "fused_front":
             kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
@@ -1569,6 +1995,7 @@ def main() -> int:
     print(json.dumps({"train_img_s": {k: {"img_s": v[0], "batch": v[1], "peak_gib": v[2]}
                                       for k, v in train_rates.items()},
                       "trained_serving_launches": train_launches}))
+    print(json.dumps({"identify": fi_rates, "identify_launches": fi_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

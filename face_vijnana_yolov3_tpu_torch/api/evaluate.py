@@ -1,10 +1,9 @@
 """Offline metric CLI — reference `evaluate.py` parity
 (reference src/space/evaluate.py:331-402).
 
-A copy of face_vijnana_yolov3_tpu/api/evaluate.py with its detection modes
-(tests/test_torch_evals.py holds them to the original); the identification
-modes wait for the identification slice (ROADMAP.md queue 1 item 9) and
-raise until then.
+A copy of face_vijnana_yolov3_tpu/api/evaluate.py, detection and
+identification modes (tests/test_torch_evals.py holds them to the
+original).
 
 Modes:
   cal_map_fd           detection P-R/AP sweep → p_r_curve.h5
@@ -22,6 +21,8 @@ Usage: python -m face_vijnana_yolov3_tpu_torch.api.evaluate -m MODE -g GT -s SOL
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 MODE_CAL_MAP_FD = "cal_map_fd"
 MODE_PLOT_PR = "plot_p_r_curve"
@@ -57,10 +58,20 @@ def main(args=None):
 
         plot_pr_curves(ns.sol_path or "p_r_curve.h5",
                        ns.plot or "p_v_curve.png")
-    elif ns.mode in (MODE_CAL_FACE_PAIRS_DISTS, MODE_CAL_VAL_FAR, MODE_CAL_ACC_FI):
-        raise NotImplementedError(
-            f"mode {ns.mode!r}: identification metrics are ROADMAP.md queue 1 "
-            "item 9 (not ported yet)")
+    elif ns.mode == MODE_CAL_FACE_PAIRS_DISTS:
+        from face_vijnana_yolov3_tpu_torch.evals.identification import (
+            cal_face_pairs_dists,
+        )
+
+        cal_face_pairs_dists()
+    elif ns.mode == MODE_CAL_VAL_FAR:
+        from face_vijnana_yolov3_tpu_torch.evals.identification import cal_VAL_FAR
+
+        cal_VAL_FAR(np.arange(0.1, 1.1, 0.1))
+    elif ns.mode == MODE_CAL_ACC_FI:
+        from face_vijnana_yolov3_tpu_torch.evals.identification import acc_sweep
+
+        acc_sweep(ns.gt_path, ns.sol_path)
     else:
         raise SystemExit(f"unknown mode: {ns.mode}")
 

@@ -125,9 +125,11 @@ class FaceDetectorPipeline:
                 "queue 1)")
         self.device = resolve_device(device)
         # The f32 contract (JAX Precision.HIGHEST): cuDNN convs default to
-        # TF32 on the card, which keeps about three decimal digits.
+        # TF32 on the card, which keeps about three decimal digits; so may
+        # f32 matmuls (the letterbox, dense1, the registry match).
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
         self.conf = conf
         self.hps = vars(conf.hps) if not isinstance(conf.hps, dict) else conf.hps
         self.nn_arch = (
@@ -437,7 +439,8 @@ class FaceDetectorPipeline:
                                     torch.from_numpy(col).to(self.device))
         return self._mat_cache[key]
 
-    def detect_batch_fused(self, staged, geoms: list, dec_dims=None):
+    def detect_batch_fused(self, staged, geoms: list, dec_dims=None,
+                           return_staged: bool = False):
         """Strict letterbox + detect, entirely on the device.
 
         `staged` is (B, maxH, maxW, 3) images packed top-left — uint8 raw
@@ -448,11 +451,16 @@ class FaceDetectorPipeline:
         one matrix pair. dec_dims: (B, 2) staged pixel dims when the JPEGs
         were decoded at a reduced DCT scale (native_loader.
         decode_batch_staged_scaled); the geoms stay in original coordinates.
+        return_staged=True also returns the staging tensor on the device
+        (as given: uint8 or f32), for the identification ROI crops to reuse
+        (api/face_identification.py:_identify_chunk_device).
         """
         n = staged.shape[0]
         if n == 0:
-            return (np.zeros((0, self.hps["num_cands"], 6), np.float32),
-                    np.zeros((0,), np.int32))
+            out = (np.zeros((0, self.hps["num_cands"], 6), np.float32),
+                   np.zeros((0,), np.int32))
+            return out + (torch.as_tensor(staged, device=self.device),) \
+                if return_staged else out
         max_h, max_w = int(staged.shape[1]), int(staged.shape[2])
         decs = [None] * n if dec_dims is None else list(dec_dims)
         mats = [self._matrices(g, max_h, max_w, d) for g, d in zip(geoms, decs)]
@@ -461,9 +469,9 @@ class FaceDetectorPipeline:
         else:
             row_ms = torch.stack([m[0] for m in mats])
             col_ms = torch.stack([m[1] for m in mats])
-        s = torch.as_tensor(staged, device=self.device)
-        s = (s.to(torch.float32) * (1.0 / 255.0) if s.dtype == torch.uint8
-             else s.to(torch.float32))
+        staged_dev = torch.as_tensor(staged, device=self.device)
+        s = (staged_dev.to(torch.float32) * (1.0 / 255.0)
+             if staged_dev.dtype == torch.uint8 else staged_dev.to(torch.float32))
         need_calib = self.precision == "int8" and self._qparams is None
         need_front = self._bf16_front_auto_pending()
         if need_calib or need_front:
@@ -479,14 +487,23 @@ class FaceDetectorPipeline:
         with torch.inference_mode():
             lb = letterbox_device_matmul(s, row_ms, col_ms)
         cands, counts = self._detect(lb)
-        return cands.cpu().numpy(), counts.cpu().numpy()
+        out = (cands.cpu().numpy(), counts.cpu().numpy())
+        return out + (staged_dev,) if return_staged else out
 
     def _iter_detection_chunks(self, file_names: list[str], batch_size: int,
                                device_letterbox: bool | None = None,
-                               scaled_decode: bool | None = None):
+                               scaled_decode: bool | None = None,
+                               yield_staged: bool = False):
         """Letterbox + detect in device batches; yields per-CHUNK results
-        (chunk_files, originals, geoms, boxes_list), boxes_list[k] rows being
-        [xmin, ymin, xmax, ymax, score] floats in original coords.
+        (chunk_files, originals, geoms, boxes_list, staged_dev), boxes_list[k]
+        rows being [xmin, ymin, xmax, ymax, score] floats in original coords.
+
+        With yield_staged=True, staged_dev is the (B, maxH, maxW, 3) device
+        staging tensor the fused detect read (full-resolution pixels at each
+        row's top-left), for the identification ROI crops to reuse without a
+        second upload; None on the paths without one (the host letterbox,
+        and the scaled decode, whose pixels are not in original coordinates),
+        and always None when yield_staged is False.
 
         device_letterbox=True routes preprocessing through
         `detect_batch_fused` (default: env FVY_DEVICE_LETTERBOX=1); its JPEGs
@@ -558,7 +575,11 @@ class FaceDetectorPipeline:
             load_chunk, len(chunks), prefetch=2, device=self.device
         )
         for chunk, (kind, batch, geoms, originals, dec_dims) in zip(chunks, loaded):
-            if kind == "staged":
+            staged_dev = None
+            if kind == "staged" and yield_staged and dec_dims is None:
+                cands, counts, staged_dev = self.detect_batch_fused(
+                    batch, geoms, return_staged=True)
+            elif kind == "staged":
                 cands, counts = self.detect_batch_fused(batch, geoms, dec_dims=dec_dims)
             else:
                 cands, counts = self.detect_batch(batch)
@@ -573,17 +594,27 @@ class FaceDetectorPipeline:
                 boxes_list.append(
                     np.concatenate([boxes, scores[k, :n, None]], axis=1)
                 )
-            yield chunk, originals, geoms, boxes_list
+            yield chunk, originals, geoms, boxes_list, staged_dev
 
     def _iter_detections(self, file_names: list[str], batch_size: int,
-                         device_letterbox: bool | None = None):
+                         device_letterbox: bool | None = None,
+                         scaled_decode: bool | None = None,
+                         yield_staged: bool = False):
         """Per-image view of `_iter_detection_chunks`: yields
-        (file_name, original_image, geom, boxes)."""
-        for chunk, originals, geoms, boxes_list in self._iter_detection_chunks(
-            file_names, batch_size, device_letterbox=device_letterbox,
+        (file_name, original_image, geom, boxes), plus the image's staging
+        row (None where there is no staged buffer) when yield_staged=True."""
+        for chunk, originals, geoms, boxes_list, staged_dev in (
+            self._iter_detection_chunks(
+                file_names, batch_size, device_letterbox=device_letterbox,
+                scaled_decode=scaled_decode, yield_staged=yield_staged,
+            )
         ):
             for k, fn in enumerate(chunk):
-                yield fn, originals[k], geoms[k], boxes_list[k]
+                if yield_staged:
+                    row = staged_dev[k] if staged_dev is not None else None
+                    yield fn, originals[k], geoms[k], boxes_list[k], row
+                else:
+                    yield fn, originals[k], geoms[k], boxes_list[k]
 
     def _correct_aspect_ratio(self, boxes: np.ndarray) -> np.ndarray:
         """Docker-variant aspect correction: widen the short axis up to

@@ -5,7 +5,9 @@ The JAX package keeps `params[f"conv_{i}"] = {"kernel": HWIO[, "bias"]}`,
 "var"}` and `params["head"] = {"kernel", "bias"}` as host numpy (or jax)
 arrays. The port's modules carry the same names as state-dict prefixes:
 `conv_{i}.weight` (OIHW) / `conv_{i}.bias`, `bnorm_{i}.gamma/beta/mean/var`,
-`head.weight` / `head.bias`. Both directions are exact copies, so the parity
+`head.weight` / `head.bias`; the identifier's dense1 kernel (flat, D) is
+`dense1.weight` (D, flat), transposed (`identifier_params_from_jax` /
+`identifier_params_to_jax`). Both directions are exact copies, so the parity
 tests hand both packages the same numpy weights. `folded_from_jax` and
 `qparams_from_jax` carry the JAX package's folded and int8-quantized trees
 over the same way, so the port's int8 path can run the JAX package's own
@@ -88,9 +90,13 @@ def qparams_from_jax(qparams: dict) -> dict:
 
 def params_to_jax(module: torch.nn.Module) -> tuple[dict, dict]:
     """A port module's weights → (params, state) numpy trees in the JAX layout."""
+    return _trees_from_state_dict(module.state_dict())
+
+
+def _trees_from_state_dict(state_dict: dict) -> tuple[dict, dict]:
     params: dict = {}
     state: dict = {}
-    for key, value in module.state_dict().items():
+    for key, value in state_dict.items():
         name, field = key.rsplit(".", 1)
         a = value.detach().cpu().numpy()
         if field == "weight":
@@ -102,4 +108,33 @@ def params_to_jax(module: torch.nn.Module) -> tuple[dict, dict]:
             params.setdefault(name, {})[field] = a
         else:
             state.setdefault(name, {})[field] = a
+    return params, state
+
+
+def identifier_params_from_jax(params_np: dict, state_np: dict) -> dict[str, torch.Tensor]:
+    """The JAX identifier's (params, state) trees → the port's state dict:
+    the trunk as `params_from_jax`, and dense1's Keras kernel (flat, D)
+    transposed to `dense1.weight` (D, flat), its columns kept in the
+    (H, W, C) Flatten order, with `dense1.bias`."""
+    trunk = {k: v for k, v in params_np.items() if k != "dense1"}
+    sd = params_from_jax(trunk, state_np)
+    if "dense1" in params_np:
+        d = params_np["dense1"]
+        sd["dense1.weight"] = torch.from_numpy(
+            np.array(d["kernel"], dtype=np.float32)).t().contiguous()
+        sd["dense1.bias"] = torch.from_numpy(np.array(d["bias"], dtype=np.float32))
+    return sd
+
+
+def identifier_params_to_jax(state_dict: dict) -> tuple[dict, dict]:
+    """The port's identifier state dict → (params, state) numpy trees in
+    the JAX layout (the inverse of `identifier_params_from_jax`)."""
+    trunk = {k: v for k, v in state_dict.items() if not k.startswith("dense1.")}
+    params, state = _trees_from_state_dict(trunk)
+    if "dense1.weight" in state_dict:
+        params["dense1"] = {
+            "kernel": np.ascontiguousarray(
+                state_dict["dense1.weight"].detach().cpu().numpy().T),
+            "bias": state_dict["dense1.bias"].detach().cpu().numpy(),
+        }
     return params, state

@@ -1,16 +1,17 @@
 """The reference's Keras HDF5 weights: import and export, through h5py alone.
 
-Port of face_vijnana_yolov3_tpu/core/keras_import.py:21-205 for the trunk
-and the detector (`collect_keras_weights`, `trunk_from_keras`,
-`detector_from_keras_h5`, `_write_keras_h5`, `save_trunk_keras_h5`,
-`save_detector_keras_h5`). The files hold layer-named tensors
+Port of face_vijnana_yolov3_tpu/core/keras_import.py:21-205 for the trunk,
+the detector and the identifier (`collect_keras_weights`,
+`trunk_from_keras`, `detector_from_keras_h5`, `identifier_from_keras_h5`,
+`_write_keras_h5`, `save_trunk_keras_h5`, `save_detector_keras_h5`,
+`save_identifier_keras_h5`). The files hold layer-named tensors
 (`conv_i/kernel:0` HWIO, `bnorm_i/{gamma,beta,moving_mean,moving_variance}:0`,
-`output/{kernel,bias}:0`) under `model_weights`, possibly nested; Keras 2.2.4
-names datasets `kernel:0`, Keras 3 drops the `:0`, and both import. Reading
+`output/{kernel,bias}:0`, `dense1/{kernel,bias}:0` with an (in, out)
+kernel) under `model_weights`, possibly nested; Keras 2.2.4 names datasets `kernel:0`, Keras 3 drops the `:0`, and both import. Reading
 gives the port's state dicts (OIHW, `convert.params_from_jax` naming);
 writing takes them and writes HWIO in the Keras 2.2.4 layout
-`model_weights/<layer>/<layer>/<weight>:0`. The identifier and full-YOLOv3
-variants come with their slices (ROADMAP.md queue 1 items 9 and 10).
+`model_weights/<layer>/<layer>/<weight>:0`. The full-YOLOv3 variant comes
+with its slice (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -106,7 +107,10 @@ def _write_keras_h5(h5_path: str, layout, state_dict: dict,
                 put(name, "moving_mean", host(f"{name}.mean"))
                 put(name, "moving_variance", host(f"{name}.var"))
         for layer, prefix in extra_layers:
-            put(layer, "kernel", hwio(f"{prefix}.weight"))
+            w = host(f"{prefix}.weight")
+            # A conv's OIHW weight goes out HWIO, a dense (out, in) one as
+            # the Keras (in, out) kernel.
+            put(layer, "kernel", hwio(f"{prefix}.weight") if w.ndim == 4 else w.T)
             put(layer, "bias", host(f"{prefix}.bias"))
 
 
@@ -115,6 +119,26 @@ def save_trunk_keras_h5(state_dict: dict, h5_path: str) -> None:
     darknet .weights build; read back by `trunk_from_keras`). Entries
     outside the trunk (the head) are not written."""
     _write_keras_h5(h5_path, conv_layout(trunk_graph()), state_dict)
+
+
+def identifier_from_keras_h5(h5_path: str) -> dict[str, torch.Tensor]:
+    """face_identifier.h5 → the identifier's state dict: the trunk, and the
+    `dense1` layer's (flat, D) kernel as `dense1.weight` (D, flat)
+    (keras_import.py:90-97 of the JAX package)."""
+    from face_vijnana_yolov3_tpu_torch.convert import identifier_params_from_jax
+
+    weights = collect_keras_weights(h5_path)
+    params, state = _trees_from_keras(weights, conv_layout(trunk_graph()))
+    params["dense1"] = {"kernel": weights["dense1/kernel:0"],
+                        "bias": weights["dense1/bias:0"]}
+    return identifier_params_from_jax(params, state)
+
+
+def save_identifier_keras_h5(state_dict: dict, h5_path: str) -> None:
+    """The identifier as the reference's `face_identifier.h5` (the trunk
+    plus `dense1`); `identifier_from_keras_h5` reads it back."""
+    _write_keras_h5(h5_path, conv_layout(trunk_graph()), state_dict,
+                    extra_layers=(("dense1", "dense1"),))
 
 
 def save_detector_keras_h5(state_dict: dict, h5_path: str) -> None:

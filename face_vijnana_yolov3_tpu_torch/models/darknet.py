@@ -431,9 +431,65 @@ def fakequant_skip_ops(ops: list[tuple]) -> set[int]:
             if op[0] == "conv" and i + 1 < len(ops) and ops[i + 1][0] == "add"}
 
 
+def remat_segments(ops: list[tuple]) -> list[list[tuple]]:
+    """Split a linear (trunk-like) graph into segments that end at each
+    residual add (darknet.py:340-358): after an add nothing from inside the
+    block is live, so a checkpointed segment saves only its input."""
+    if any(op[0] in ("restore", "concat") for op in ops):
+        raise ValueError("remat segmentation requires a linear trunk graph")
+    segments: list[list[tuple]] = [[]]
+    for op in ops:
+        segments[-1].append(op)
+        if op[0] == "add":
+            segments.append([])
+    if not segments[-1]:
+        segments.pop()
+    return segments
+
+
+def _apply_graph_remat(params, state, x, ops, *, remat, compute_dtype, bn_momentum,
+                       fakequant):
+    """apply_graph_train segment by segment (darknet.py:404-443): the first
+    `remat` segments (all of them for True) run under
+    torch.utils.checkpoint, which keeps only each segment's input and
+    recomputes its inside in the backward. Each segment is a call of its
+    own, so with fakequant its input is fake-quantized again (idempotent on
+    an int8 grid) and it returns its output cast to `compute_dtype`, as in
+    the JAX package. The returned state merges each segment's BN keys."""
+    from torch.utils.checkpoint import checkpoint
+
+    outputs: dict[str, torch.Tensor] = {}
+    new_state = dict(state)
+    h = x
+    segs = remat_segments(ops)
+    n_ckpt = len(segs) if remat is True else int(remat)
+    for i, seg_ops in enumerate(segs):
+        core = [op for op in seg_ops if op[0] != "output"]
+
+        def seg_fn(h, core=core):
+            outs, st = apply_graph_train(
+                params, state, h, core + [("output", "__h")],
+                compute_dtype=compute_dtype, bn_momentum=bn_momentum,
+                fakequant=fakequant)
+            seg_bn = {f"bnorm_{op[1]}" for op in core if op[0] == "conv" and op[5]}
+            return outs["__h"].to(compute_dtype), {
+                k: v for k, v in st.items() if k.rsplit(".", 1)[0] in seg_bn}
+
+        if i < n_ckpt:
+            h, st = checkpoint(seg_fn, h, use_reentrant=False)
+        else:
+            h, st = seg_fn(h)
+        new_state.update(st)
+        for op in seg_ops:
+            if op[0] == "output":
+                outputs[op[1]] = h.float()
+    return outputs, new_state
+
+
 def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tuple], *,
                       compute_dtype=torch.float32, bn_momentum: float | None = None,
-                      fakequant: bool = False) -> tuple[dict, dict]:
+                      fakequant: bool = False,
+                      remat: bool | int = False) -> tuple[dict, dict]:
     """Training-mode forward (JAX `apply_graph(train=True)`): x (B, S, S, 3)
     NHWC → ({output name: NHWC f32}, new_state).
 
@@ -448,8 +504,13 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
     activation is cast back to `compute_dtype`. fakequant adds the int8
     fake-quant of every requant position and of every kernel (QAT). f32
     convs need TF32 off (the caller sets it: JAX Precision.HIGHEST).
-    Activations run NCHW inside.
+    Activations run NCHW inside. remat (True, or an int N for the first N
+    segments) checkpoints residual-block segments (`_apply_graph_remat`).
     """
+    if remat:
+        return _apply_graph_remat(params, state, x, ops, remat=remat,
+                                  compute_dtype=compute_dtype,
+                                  bn_momentum=bn_momentum, fakequant=fakequant)
     mom = BN_MOMENTUM if bn_momentum is None else bn_momentum
     saved: dict[str, torch.Tensor] = {}
     saved_scale: dict[str, torch.Tensor | None] = {}

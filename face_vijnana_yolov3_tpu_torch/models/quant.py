@@ -12,6 +12,8 @@ package's):
   "conv_{i}":   {"kernel_q": int8 OHWI, "w_scale": (Cout,) f32, "bias": f32}
   "act_scales": len(ops) + 1 float64 numpy vectors, entry 0 the input's
   "head":       folded head {"kernel" OIHW f32, "bias"}
+  "dense1":     the identifier's dense layer {"weight" (D, flat), "bias"},
+                served bf16 (models/identifier.py)
   "tail_start"/"tail": with a bf16 tail, the op index where int8 stops and
                 the folded params that run the rest in bf16
   "bf16_ops"/"bf16":   conv indices run as folded-bf16 islands, and theirs
@@ -387,7 +389,7 @@ def to_device(qparams: dict, device) -> dict:
         if name in ("tail", "bf16"):
             out[name] = {c: {k: t.to(device) for k, t in p.items()}
                          for c, p in v.items()}
-        elif name.startswith("conv_") or name == "head":
+        elif name.startswith("conv_") or name in ("head", "dense1"):
             out[name] = {k: t.to(device) for k, t in v.items()}
         elif name not in ("act_scales_f32", "act_inv_f32"):
             out[name] = v

@@ -4,8 +4,8 @@ evaluate CLI's detection modes (api/evaluate.py) held to the JAX package's.
 Both are jax-free modules the port may not import. The harness is a copy:
 its source after the module docstring equals the original's, and on the
 same solution files both give the same P-R curves and APs, bit for bit. The
-CLI's detection modes write the same p_r_curve.h5 and render a PNG; its
-identification modes raise until that slice is ported.
+CLI's detection modes write the same p_r_curve.h5 and render a PNG (its
+identification modes: tests/test_torch_identification.py).
 """
 
 import ast
@@ -86,8 +86,5 @@ def test_cli_detection_modes_equal_the_original(tmp_path, monkeypatch):
     assert (tmp_path / "pr.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     evaluate.main(["-m", "plot_p_r_curve", "-s", "p_r_curve.h5", "--plot", "cli.png"])
     assert (tmp_path / "cli.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    for mode in ("cal_face_pairs_dists", "cal_VAL_FAR", "cal_acc_fi"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            evaluate.main(["-m", mode])
     with pytest.raises(SystemExit):
         evaluate.main(["-m", "nope"])

@@ -4,8 +4,11 @@ conftest.py has already imported jax into this process, so the runtime check
 runs in a fresh interpreter: import the port, build a small detector and run
 f32, bf16 and int8 `detect_batch` on the CPU (the int8 one calibrates and runs
 the int8 convs and the fused residual blocks), the fused-front trunk
-(ops/front_fused.py) and one fake-quant training step, import the training,
-dataset, Keras-h5, native-loader and mAP modules, then assert that neither `jax`
+(ops/front_fused.py) and one fake-quant training step, embed with a small
+identifier at f32, bf16 and int8, crop ROIs on the device path and match
+them against a registry, import the training, dataset, Keras-h5,
+native-loader, mAP, subject-DB and identification modules, then assert that
+neither `jax`
 nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
 every source of the package and chip_smoke.py: no import of either, and no
 allow-list.
@@ -40,6 +43,12 @@ from face_vijnana_yolov3_tpu_torch.data import native_loader, synthetic, uccs
 from face_vijnana_yolov3_tpu_torch.evals import detection
 from face_vijnana_yolov3_tpu_torch.models.darknet import split_state_dict
 from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+from face_vijnana_yolov3_tpu_torch.api import face_identification
+from face_vijnana_yolov3_tpu_torch.data import facedb
+from face_vijnana_yolov3_tpu_torch.evals import identification
+from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
+from face_vijnana_yolov3_tpu_torch.ops import roi
+from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
 
 conf = FdConf(weights_path="does_not_exist.weights")
 conf.nn_arch.image_size = 64
@@ -58,6 +67,20 @@ gts = torch.zeros((2, 2, 2, 6))
 params, state, _, loss = step(params, state, opt.init(params), torch.from_numpy(x), gts,
                               torch.ones(2))
 assert torch.isfinite(loss), loss
+fim = FaceIdentifierModel(image_size=64, dense1_dim=8, device="cpu")
+xt = torch.from_numpy(x)
+embs = [fim.embed(xt), fim.embed_folded(fim.fold(), xt, f32_front_blocks=2),
+        fim.embed_quant(fim.quantize(fim.fold(), xt), xt)]
+assert all(e.shape == (2, 8) for e in embs), [e.shape for e in embs]
+img = (x[0] * 255).astype(np.uint8)
+keep, wins = roi.build_roi_windows(np.array([[5.0, 5.0, 40.0, 30.0, 0.9]]), 64, 64)
+org = np.array([[0, 0, 0]], np.int32)
+crops = roi.roi_letterbox_device_windowed(
+    torch.from_numpy(img[None]), torch.from_numpy(org),
+    *(torch.from_numpy(a) for a in roi.stack_roi_taps(wins, 64, org[:, 1:])),
+    window_h=64, window_w=64)
+idx, dist = match_embeddings(fim.embed(crops), embs[0])
+assert idx.shape == (1,) and bool(torch.isfinite(dist).all())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "face_vijnana_yolov3_tpu"))
 assert not leaked, leaked
