@@ -84,7 +84,25 @@ which raises on failure (exit code != 0):
               at 64 crops (f32, bf16, int8) and ms per identified chunk on
               the device-ROI path; one f32 triplet step card vs CPU, triplet
               training (bf16 b32, f32 b8 with the loss falling; semi_hard),
-              triplets/s and peak memory, held-out top-1 (not gated).
+              triplets/s and peak memory, held-out top-1 (not gated); the
+              int8 CLI test run again from the same seeds and file order
+              must write the same rows;
+12. coco    — the COCO demo on the full YOLOv3-416 (COCO_*): a seeded
+              darknet yolov3.weights, the `-w` CLI (api.yolov3_detect.main)
+              at f32, bf16 and int8 on a landscape and a portrait JPEG,
+              `-s`/`-l` where h5py is installed, the legacy `--mode test`
+              CLI (without h5py: legacy_args_to_conf on a .pt), FI
+              reconstruct of RECON_IDS ids at 416²: the main path, whose
+              launch counts (B, A0 and A must move) go to `launches_coco`;
+              then A0 vs plain at every conv shape the face trunk lacks
+              (the 255-channel linear heads, the 768/384-channel concat
+              inputs), A at b=1, B on the (80, 256) class batch (and with
+              infinite and zero-area boxes), the int8 heads card vs CPU
+              with the blocks on and off (bit-identical), the f32 heads
+              card vs CPU (HEAD_TOL), reconstruct card vs CPU (RECON_TOL);
+              detect_coco ms per image at each precision on a
+              device-resident input, its kernel launches per int8 image
+              (35 A0, 20 A, 1 B), B at (80, 256) and reconstruct ms.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -226,6 +244,21 @@ FI_TIMING_STEPS = 6
 # the card-vs-CPU embedding error) and the gradients within STEP_GRAD_TOL
 # of their norm.
 FI_STEP_LOSS_ATOL = 1e-4
+# [coco]: the COCO demo (api/yolov3_detect) on the full published YOLOv3-416
+# (75 convs, three 255-channel heads), seeded random weights with seeded BN
+# statistics and head biases, written as a darknet yolov3.weights; a
+# landscape and a portrait JPEG ((h, w): the two branches of the letterbox
+# geometry, the portrait one through the reference's `new_h = net_w`).
+COCO_SIZE = 416
+COCO_JPEGS = ((480, 640), (640, 360))
+COCO_PRECISIONS = ("float32", "bfloat16", "int8")
+COCO_TIMING_REPS = 10
+COCO_NMS_TH = 0.45  # the CLI's default
+RECON_IDS = 4
+# reconstruct at 416², card vs CPU: 72 transposed convs (cuDNN, TF32 off)
+# and the channel l2norms summed in another order; HEAD_TOL's reason,
+# relative to max |output|.
+RECON_TOL = 1e-4
 # mode=fid_db writes the reference's HDF5 (subject_facial_ids.h5) through
 # h5py, which a machine may lack; then the registry alone embeds the same
 # subject faces.
@@ -365,16 +398,18 @@ def check_csv(csv: str, n_files: int, what: str):
 
 
 def trunk_int8_calls(ops, size: int, fused_blocks: bool):
-    """The int8 kernel calls of one trunk forward at size², in order:
+    """The int8 kernel calls of one forward of the graph `ops` (the trunk,
+    or the full YOLOv3 with its routes) at size², in order:
     ("conv", h, w, cin, cout, k, stride, skip) and ("block", h, w, c, ch),
     walked the way models/quant.apply_graph_quant walks the graph."""
     from face_vijnana_yolov3_tpu_torch.models import quant
 
-    calls, hw, c, i = [], size, 3, 0
+    calls, hw, c, i, saved = [], size, 3, 0, {}
     while i < len(ops):
         op = ops[i]
         if fused_blocks and op[0] == "save" and quant._block_match(ops, i, c):
             calls.append(("block", hw, hw, c, ops[i + 1][2]))
+            saved[op[1]] = (hw, c)
             i += 4
             continue
         if op[0] == "conv":
@@ -385,6 +420,14 @@ def trunk_int8_calls(ops, size: int, fused_blocks: bool):
             hw, c = ho, cout
             i += 2 if skip else 1
             continue
+        if op[0] in ("save", "mark"):
+            saved[op[1]] = (hw, c)
+        elif op[0] == "restore":
+            hw, c = saved[op[1]]
+        elif op[0] == "concat":
+            c += saved[op[1]][1]
+        elif op[0] == "upsample":
+            hw *= 2
         i += 1
     return calls
 
@@ -921,7 +964,8 @@ def serve_large(tmp, fdm, card, rng) -> int:
     """f32 test mode at image_size SERVE_LARGE (N = 1,089 > 1,024) on the
     card and on the CPU from one checkpoint: as many rows per image, each
     card row with a CPU row within a pixel and SERVE_SCORE_TOL, the boxes
-    equal on SERVE_BOX_EXACT of them. Returns the nms_sweep launches."""
+    equal on SERVE_BOX_EXACT of them; a card row with no such CPU row is
+    printed beside its nearest CPU row. Returns the nms_sweep launches."""
     from face_vijnana_yolov3_tpu_torch.api.config import FdConf
     from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
     from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
@@ -965,6 +1009,7 @@ def serve_large(tmp, fdm, card, rng) -> int:
     n_rows = len(out["cpu"][0])
     exact = matched = 0
     worst_px = worst_score = 0.0
+    unmatched = []
     for name, rows in per_image.items():
         card_rows, cpu_rows = rows.get("cuda", []), list(rows.get("cpu", []))
         if len(card_rows) != len(cpu_rows):
@@ -979,12 +1024,16 @@ def serve_large(tmp, fdm, card, rng) -> int:
                 worst_px = max(worst_px, float(d[k][:4].max()))
                 worst_score = max(worst_score, float(d[k][4]))
                 cpu_rows.pop(k)
+            else:
+                unmatched.append((name, r, cpu_rows[k], d[k].tolist()))
     print(f"[serve] f32 test mode at {SERVE_LARGE}² (N = {(SERVE_LARGE // 32) ** 2}), 4 "
           f"JPEGs, batch 2, on {card}: {n_rows} rows on both; {matched} card rows have a "
           f"CPU row within 1 px and {SERVE_SCORE_TOL} (tol: all), {exact} of them with "
           f"the box equal (tol: >= {SERVE_BOX_EXACT:.0%}); worst {worst_px:g} px, "
           f"{worst_score:.3g} in score; nms_sweep launches {launches}; card "
           f"{out['cuda'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s")
+    for name, r, c, delta in unmatched:  # x, y, w, h, score
+        print(f"[serve] unmatched {name}: card {r}, nearest CPU {c}, |delta| {delta}")
     if not (n_rows and matched == n_rows and exact >= SERVE_BOX_EXACT * n_rows
             and launches > 0):
         raise AssertionError(f"[serve] the card's {SERVE_LARGE}² CSV disagrees with the CPU's")
@@ -1057,7 +1106,9 @@ def profile_split(fn, steps: int) -> dict:
     """Device ms a call of `fn` by kernel family (torch.profiler over
     `steps` calls): convolutions (cuDNN and GEMM kernels), reductions (BN
     statistics and their gradients), the optimizer's foreach kernels, the
-    other elementwise passes, and the rest."""
+    other elementwise passes, and the rest. CUDA activity only (not the
+    port's utils.profiling.device_trace, which also records and exports
+    host events): the smoke's host-bound timings run right after it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1466,6 +1517,26 @@ def identify_phase(tmp, card, dev):
     if [r[:1] + r[2:] for r in sol["roi"]] != [r[:1] + r[2:] for r in sol["host"]]:
         raise AssertionError("[identify] the device_roi CSV's rows differ from the host one's")
 
+    # ---- reproducibility of the int8 CLI test above: a second pipeline from
+    # the same conf, seeds, tree and file order must write the same rows.
+    # (int8 calibrates on the first batch or crops in the order glob returns
+    # the files, which the file system decides, as in the JAX package.)
+    repeat_csv = os.path.join(tmp, "solution_fi_int8_repeat.csv")
+    os.chdir(root)
+    try:
+        conf_r = load_conf(conf_path)
+        conf_r.fi_conf.output_file_path = repeat_csv
+        fim.FaceIdentifierPipeline(conf_r, precision="int8").test()
+    finally:
+        os.chdir(cwd)
+    again = open(repeat_csv).read().splitlines()
+    first = open(csvs["int8"]).read().splitlines()
+    print(f"[identify] int8 CLI test run again from the same seeds and file order: "
+          f"{len(again)} rows vs {len(first)}, equal row by row {again == first}")
+    if again != first:
+        raise AssertionError("[identify] the int8 CLI test is not reproducible from the "
+                             "same seeds and file order")
+
     # ---- card vs CPU port on the hand-made boxes, f32.
     fi_cpu = fim.FaceIdentifierPipeline(load_conf(conf_path), device="cpu")
     cpu_rows = [fi_cpu._identify_image(im, bx, subject_ids, reg)
@@ -1669,6 +1740,312 @@ def identify_phase(tmp, card, dev):
     finally:
         os.chdir(cwd)
     return launches, rates
+
+
+def coco_phase(tmp, card, dev):
+    """The COCO demo on the card (phase 12): the main path through the
+    entry points a user calls (the `-w` CLI at each precision on two JPEGs,
+    `-s`/`-l` where h5py is installed, the legacy `--mode test` CLI and FI
+    `reconstruct` at 416² on RECON_IDS ids), with the launch counts zeroed
+    before it and read after it; then each kernel against its plain version
+    at this path's shapes (A0 at every conv of the graph that the face
+    trunk lacks: the 255-channel heads, the 768/384-channel concat inputs;
+    A at b=1; B on the (80, 256) class batch of a real decode, and with
+    infinite and zero-area boxes put in), the three int8 heads card vs CPU
+    with the blocks on and off, the f32 heads card vs CPU, reconstruct card
+    vs CPU; then detect_coco ms per image on a device-resident input (and
+    its device time by kernel family), its launches per int8 image, B at
+    (80, 256) and reconstruct ms. Returns
+    (launches, {metric: value})."""
+    import argparse
+
+    from face_vijnana_yolov3_tpu_torch.api import face_detection as fdm
+    from face_vijnana_yolov3_tpu_torch.api import face_identification as fim
+    from face_vijnana_yolov3_tpu_torch.api import yolov3_detect as yd
+    from face_vijnana_yolov3_tpu_torch.api.config import Conf
+    from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.core.weights import save_darknet_weights
+    from face_vijnana_yolov3_tpu_torch.models import darknet, quant
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.models.recon import FaceReconstructionModel
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_int8, block_int8_reference
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_reference
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import fused_front
+    from face_vijnana_yolov3_tpu_torch.ops.nms import class_batch
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep, nms_sweep_reference
+    from face_vijnana_yolov3_tpu_torch.ops.postprocess import (
+        coco_candidates,
+        coco_postprocess,
+    )
+
+    S = COCO_SIZE
+    root = os.path.join(tmp, "coco")
+    os.makedirs(root)
+    ops = darknet.yolov3_graph()
+    params, state = darknet.init_graph_params(ops, SEED + 20)
+    darknet.perturb_batchnorm(params, state, ops, SEED + 21)
+    hrng = np.random.default_rng(SEED + 22)
+    for idx in (81, 93, 105):  # live head biases (the init gives zeros)
+        params[f"conv_{idx}"]["bias"] = hrng.normal(0, 0.5, 255).astype(np.float32)
+    sd = params_from_jax(params, state)
+    del params, state
+    n_params = sum(v.numel() for k, v in sd.items() if not k.endswith((".mean", ".var")))
+    weights = os.path.join(root, "yolov3.weights")
+    save_darknet_weights(weights, sd, ops)
+    jrng = np.random.default_rng(SEED + 23)
+    jpegs = []
+    for i, (h, w) in enumerate(COCO_JPEGS):
+        fn = os.path.join(root, f"coco_{i}.jpg")
+        Image.fromarray(jrng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(fn)
+        jpegs.append(fn)
+    legacy_dir = os.path.join(root, "legacy")
+    os.makedirs(legacy_dir)
+    legacy_files = write_images(legacy_dir, jrng)
+    fd_model = FaceDetectorModel(image_size=IMAGE_SIZE, device="cpu")
+    fparams, fstate = fd_model.init_params(SEED)
+    darknet.perturb_batchnorm(fparams, fstate, fd_model.ops, SEED + 1)
+    fd_sd = params_from_jax(fparams, fstate)
+    del fd_model, fparams, fstate
+    fd_pt = os.path.join(root, "face_detector.pt")
+    save_checkpoint(fd_pt, fd_sd)
+    if HAVE_H5PY:  # the legacy CLI's artifact, read from the working directory
+        from face_vijnana_yolov3_tpu_torch.core.keras_import import save_detector_keras_h5
+
+        save_detector_keras_h5(fd_sd, os.path.join(root, "face_detector.hd5"))
+    legacy_csv = os.path.join(root, "solution_fd_legacy.csv")
+    legacy_flags = {"mode": "test", "raw_data_path": legacy_dir,
+                    "output_file_path": legacy_csv, "image_size": str(IMAGE_SIZE),
+                    "num_filters": "6", "lr": "0.001", "beta_1": "0.99", "beta_2": "0.99",
+                    "decay": "0.0", "step_per_epoch": "1", "epochs": "1",
+                    "face_conf_th": "0.05", "nms_iou_th": "0.5", "num_cands": "60",
+                    "model_loading": "1"}
+    conf_fi = Conf()
+    conf_fi.fi_conf.weights_path = conf_fi.fd_conf.weights_path = "missing.weights"
+    conf_fi.fi_conf.nn_arch.image_size = conf_fi.fd_conf.nn_arch.image_size = S
+    ids = np.random.default_rng(SEED + 24).normal(
+        size=(RECON_IDS, conf_fi.fi_conf.nn_arch.dense1_dim)).astype(np.float32)
+
+    # ---- the main path: counts zeroed just before, read just after.
+    kernel_fns = (nms_sweep, conv_int8, block_int8, fused_front)
+    cwd = os.getcwd()
+    os.chdir(root)  # -s/-l's yolov3_model.h5, the legacy artifact, the decoder's .pt
+    try:
+        for k in kernel_fns:
+            k.launches = 0
+        t0 = time.perf_counter()
+        cli_s = collections.defaultdict(list)
+        for precision in COCO_PRECISIONS:
+            for fn in jpegs:
+                t1 = time.perf_counter()
+                out = yd.main(["-w", weights, "-i", fn, "--precision", precision])
+                torch.cuda.synchronize()
+                cli_s[precision].append(time.perf_counter() - t1)
+                if imread(out).shape != imread(fn).shape:
+                    raise AssertionError(f"[coco] {out}: not the input's shape")
+                os.replace(out, out.replace("_detected", f"_detected_{precision}"))
+        if HAVE_H5PY:
+            yd.main(["-w", weights, "-i", jpegs[0], "-s", "1"])
+            yd.main(["-l", "1", "-i", jpegs[0]])
+            print("[coco] -s wrote yolov3_model.h5 and -l ran from it")
+        else:
+            print("[coco] h5py is not installed on this machine: the -s/-l runs "
+                  "(yolov3_model.h5) are skipped; the CPU tests drive them")
+        if HAVE_H5PY:
+            fdm.main([a for k, v in legacy_flags.items() for a in (f"--{k}", v)])
+        else:
+            conf_l = fdm.legacy_args_to_conf(argparse.Namespace(**legacy_flags))
+            print(f"[coco] h5py is not installed: legacy_args_to_conf built the --mode "
+                  f"test conf (model {conf_l.model_path}, face-region ratio "
+                  f"{conf_l.apply_face_region_ratio}); it serves from {os.path.basename(fd_pt)} "
+                  f"instead of the .hd5 artifact")
+            conf_l.model_path = fd_pt
+            fdm.FaceDetectorPipeline(conf_l).test()
+        fi = fim.FaceIdentifierPipeline(conf_fi)
+        rec = fi.reconstruct(ids)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernel_fns}
+        main_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    legacy_summary = check_csv(legacy_csv, len(legacy_files), "legacy --mode test")
+    print(f"[coco] YOLOv3-{S} ({n_params / 1e6:.1f} M parameters), the -w CLI at "
+          f"{', '.join(COCO_PRECISIONS)} on {len(jpegs)} JPEGs (h, w) {COCO_JPEGS}, the "
+          f"legacy --mode test CLI ({legacy_summary}), reconstruct of {RECON_IDS} ids "
+          f"at {S}² {rec.shape} on {card}: {main_s:.1f} s; CLI wall s a run "
+          f"{ {p: [round(t, 2) for t in v] for p, v in cli_s.items()} }; launches {launches}")
+    if min(launches[k] for k in ("nms_sweep", "conv_int8", "block_int8")) == 0:
+        raise AssertionError(f"[coco] the COCO path skipped a kernel: {launches}")
+    if rec.shape != (RECON_IDS, S, S, 3) or not np.isfinite(rec).all():
+        raise AssertionError("[coco] reconstruct gave no finite images")
+
+    # ---- A0 at the graph's new shapes and A at b=1, vs their plain versions.
+    rng = np.random.default_rng(SEED + 25)
+    trunk = set(trunk_int8_calls(darknet.trunk_graph(), S, True)
+                + trunk_int8_calls(darknet.trunk_graph(), S, False))
+    calls = trunk_int8_calls(ops, S, True)
+    new_convs = sorted({c[1:] for c in calls if c[0] == "conv" and c not in trunk})
+    conv_cases = [(1, c) for c in new_convs] + [
+        (3, (*RAGGED_HW, *c[2:])) for c in new_convs if c[3] == 255]
+    err = {"conv_int8": 0, "block_int8": 0}
+    for b, shape in conv_cases:
+        a = int8_conv_operands(b, *shape, rng)
+        leaky = shape[3] != 255  # the heads are linear
+        got = conv_int8(a["x_q"], a["w_q"], a["w_scale"], a["bias"], a["inv_out"],
+                        stride=shape[5], leaky=leaky)
+        want = conv_int8_reference(a["x_q"], a["w_q"], a["w_scale"], a["bias"],
+                                   a["inv_out"], stride=shape[5], leaky=leaky)
+        torch.cuda.synchronize()
+        err["conv_int8"] = max(err["conv_int8"], int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"[coco] conv_int8 != plain version at b={b} {shape}")
+    for shape in sorted({c[1:] for c in calls if c[0] == "block"}):
+        args = int8_block_operands(1, *shape, rng)
+        got, want = block_int8(*args), block_int8_reference(*args)
+        torch.cuda.synchronize()
+        err["block_int8"] = max(err["block_int8"], int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"[coco] block_int8 != plain version at b=1 {shape}")
+    print(f"[coco] conv_int8 vs plain at the {len(new_convs)} conv shapes the face trunk "
+          f"lacks (b=1; the 255-channel heads linear, also ragged {RAGGED_HW} at b=3) and "
+          f"block_int8 at b=1: torch.equal in all {len(conv_cases)} + "
+          f"{len({c[1:] for c in calls if c[0] == 'block'})} cases")
+
+    # ---- the graph: int8 card (blocks on, off) vs CPU, f32 card vs CPU.
+    image = imread(jpegs[1])
+    x = torch.from_numpy(yd.preprocess_coco(image, S, S)).to(dev)
+    sd_dev = {k: v.to(dev) for k, v in sd.items()}
+    with torch.inference_mode():
+        qp = quant.to_device(quant.quantize_folded(darknet.fold_graph_params(sd_dev, ops),
+                                                   x, ops), dev)
+        on = quant.apply_graph_quant(qp, x, ops, fused_blocks=True)
+        off = quant.apply_graph_quant(qp, x, ops, fused_blocks=False)
+        t0 = time.perf_counter()
+        cpu8 = quant.apply_graph_quant(quant.to_device(qp, "cpu"), x.cpu(), ops,
+                                       fused_blocks=True)
+        cpu8_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    same8 = {k: (torch.equal(on[k], off[k]), torch.equal(on[k].cpu(), cpu8[k]))
+             for k in yd.YOLO_OUTPUTS}
+    live = {k: float((cpu8[k] != 0).float().mean()) for k in yd.YOLO_OUTPUTS}
+    print(f"[coco] int8 heads at {S}², blocks on == off and card == CPU plain path "
+          f"(CPU {cpu8_s:.1f} s): {same8}; non-zero shares {live}")
+    if not all(a and b for a, b in same8.values()):
+        raise AssertionError("[coco] the int8 heads differ (blocks on/off or card/CPU)")
+    f32_card = yd.coco_forward(sd_dev, "float32", dev)(x)
+    f32_cpu = yd.coco_forward(sd, "float32", "cpu")(x.cpu())
+    f32_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for a, b in zip(f32_card, f32_cpu))
+    print(f"[coco] f32 heads card vs CPU: max |diff| {f32_err:.3g} of max |head| "
+          f"(tol {HEAD_TOL})")
+    if not f32_err <= HEAD_TOL:
+        raise AssertionError("[coco] the card's f32 heads disagree with the CPU's")
+
+    # ---- B on the (80, 256) class batch of the card's f32 decode, and with
+    # infinite and zero-area boxes put into it.
+    h, w = image.shape[:2]
+    with torch.inference_mode():
+        boxes_k, _obj, classes_k, valid = coco_candidates(
+            tuple(t[0] for t in f32_card), h, w, net_h=S, net_w=S)
+        b_sorted, s_sorted, _order = class_batch(boxes_k, classes_k)
+        odd = boxes_k.clone()
+        odd[::7, 2] = torch.inf
+        odd[3::11, 0] = -torch.inf
+        odd[5::13, 2:] = odd[5::13, :2]  # zero area
+        b_odd, s_odd, _ = class_batch(odd, classes_k)
+    nms_err = 0.0
+    for bb, ss in ((b_sorted, s_sorted), (b_odd, s_odd)):
+        got = nms_sweep(bb, ss, COCO_NMS_TH)
+        want = nms_sweep_reference(bb, ss, COCO_NMS_TH)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("[coco] nms_sweep != plain version on the class batch")
+        nms_err = max(nms_err, float((got - want).abs().max()))
+    kept = nms_sweep(b_sorted, s_sorted, COCO_NMS_TH) > 0
+    n = s_sorted.shape[1]
+    pairs = int((kept * (n - 1 - torch.arange(n, device=dev))).sum())
+    nms_bound, nms_bound_by = bound(s_sorted.numel() * (16 + 4 + 4),
+                                    NMS_OPS_PER_PAIR * pairs + NMS_OPS_PER_BOX * s_sorted.numel(),
+                                    PEAK_F32)
+    nms_ms = graph_ms(lambda: nms_sweep(b_sorted, s_sorted, COCO_NMS_TH))
+    nms_plain = cuda_ms(lambda: nms_sweep_reference(b_sorted, s_sorted, COCO_NMS_TH), 5)
+    print(f"[coco] nms_sweep on the {tuple(s_sorted.shape)} class batch ({int(valid.sum())} "
+          f"candidates through the gate; and with infinite and zero-area boxes): torch.equal "
+          f"with the plain version; {card}: kernel {quartiles(nms_ms)} on the device, plain "
+          f"{quartiles(nms_plain)}, bound {nms_bound * 1e3:.3f} us by {nms_bound_by} "
+          f"({pairs} IoU tests)")
+
+    # ---- reconstruct, card vs CPU on the same decoder.
+    cpu_rm = FaceReconstructionModel(image_size=S, device="cpu")
+    cpu_rm.load_state_dict({k: v.cpu() for k, v in fi.recon_model.state_dict().items()})
+    with torch.inference_mode():
+        rec_cpu = cpu_rm(torch.from_numpy(ids)).numpy()
+    rec_err = float(np.abs(rec - rec_cpu).max() / np.abs(rec_cpu).max())
+    print(f"[coco] reconstruct {rec.shape} card vs CPU: max |diff| {rec_err:.3g} of max "
+          f"|output| {float(np.abs(rec_cpu).max()):.4g} (tol {RECON_TOL})")
+    if not rec_err <= RECON_TOL:
+        raise AssertionError("[coco] the card's reconstruction disagrees with the CPU's")
+    del cpu_rm, f32_cpu, cpu8
+
+    # ---- timings on a device-resident input, after warm-up.
+    metrics = {"cli_s": {p: float(np.mean(v)) for p, v in cli_s.items()},
+               "nms_ms_80x256": float(np.median(nms_ms)),
+               "nms_plain_ms_80x256": float(np.median(nms_plain)),
+               "nms_bound_ms_80x256": nms_bound, "nms_bound_by_80x256": nms_bound_by,
+               "max_abs_err": {**err, "nms_sweep": nms_err}}
+    for precision in COCO_PRECISIONS:
+        program = yd.coco_forward(sd_dev, precision, dev, x_calib=x)
+
+        def detect(program=program):
+            with torch.inference_mode():
+                return coco_postprocess(tuple(t[0] for t in program(x)), h, w,
+                                        nms_th=COCO_NMS_TH, net_h=S, net_w=S)
+
+        ms = cuda_ms(detect, COCO_TIMING_REPS, warmup=2)
+        metrics[f"detect_ms_{precision}"] = float(np.median(ms))
+        split = profile_split(detect, 3)
+        metrics[f"detect_device_ms_{precision}"] = sum(split.values())
+        if precision == "int8":
+            for k in kernel_fns:
+                k.launches = 0
+            detect()
+            torch.cuda.synchronize()
+            metrics["int8_launches_per_image"] = {k.__name__: k.launches for k in kernel_fns}
+        print(f"[coco] detect_coco {precision} at {S}² (forward + postprocess of one "
+              f"device-resident image; int8 calibrated once, before) on {card}: "
+              f"{quartiles(ms)}; device ms by kernel family (torch.profiler) "
+              f"{ {k: round(v, 4) for k, v in split.items()} }, "
+              f"{sum(split.values()):.3f} in all, busy "
+              f"{sum(split.values()) / np.median(ms):.1%}")
+        del program
+    # The JAX demo runs its int8 graph with the blocks off and its NMS in
+    # XLA; the port turns kernel A on. Time both at b=1 on the same qparams,
+    # alternated: on, off, on, off.
+    blocks_ms = collections.defaultdict(list)
+    for blocks in (True, False, True, False):
+        def detect8(blocks=blocks):
+            with torch.inference_mode():
+                outs = quant.apply_graph_quant(qp, x, ops, fused_blocks=blocks)
+                return coco_postprocess(tuple(outs[k][0] for k in yd.YOLO_OUTPUTS), h, w,
+                                        nms_th=COCO_NMS_TH, net_h=S, net_w=S)
+
+        blocks_ms["on" if blocks else "off"] += cuda_ms(detect8, COCO_TIMING_REPS, warmup=2)
+    for k, v in blocks_ms.items():
+        metrics[f"detect_ms_int8_blocks_{k}"] = float(np.median(v))
+    print(f"[coco] detect_coco int8 at {S}², b=1, blocks on vs off (alternated) on {card}: "
+          f"on {quartiles(blocks_ms['on'])}, off {quartiles(blocks_ms['off'])}")
+    z = torch.from_numpy(ids).to(dev)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: fi.recon_model(z), 5, warmup=2)
+    metrics["reconstruct_ms"] = float(np.median(ms))
+    print(f"[coco] reconstruct {RECON_IDS} ids at {S}² on {card}: {quartiles(ms)}; int8 "
+          f"launches per image {metrics['int8_launches_per_image']}")
+    per = metrics["int8_launches_per_image"]
+    if per["conv_int8"] != 35 or per["block_int8"] != 20 or per["nms_sweep"] != 1:
+        raise AssertionError(f"[coco] int8 launches per image {per}, expected 35 / 20 / 1")
+    del fi, sd_dev, qp
+    torch.cuda.empty_cache()
+    return launches, metrics
 
 
 def main() -> int:
@@ -1945,7 +2322,10 @@ def main() -> int:
         print(f"[train] done at {time.perf_counter() - t_start:.0f} s")
         torch.cuda.empty_cache()
         fi_launches, fi_rates = identify_phase(tmp, card, dev)
-        print(f"[identify] done at {time.perf_counter() - t_start:.0f} s; total run "
+        print(f"[identify] done at {time.perf_counter() - t_start:.0f} s")
+        torch.cuda.empty_cache()
+        coco_launches, coco_rates = coco_phase(tmp, card, dev)
+        print(f"[coco] done at {time.perf_counter() - t_start:.0f} s; total run "
               f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
@@ -1955,14 +2335,18 @@ def main() -> int:
         "source": "face_vijnana_yolov3_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "face_vijnana_yolov3_tpu/ops/pallas_nms.py:35",
         "launches": launches["nms_sweep"],
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, coco_rates["max_abs_err"]["nms_sweep"]),
         "ms": nms["ms"],
         "plain_ms": nms["plain_ms"],
         "bound_ms": nms["bound_ms"],
         "bound_by": nms["bound_by"],
         "library_ms": None,
         "launches_identify": fi_launches["nms_sweep"],
+        "launches_coco": coco_launches["nms_sweep"],
         "events_ms": nms["events_ms"],
+        "ms_coco_80x256": coco_rates["nms_ms_80x256"],
+        "plain_ms_coco_80x256": coco_rates["nms_plain_ms_80x256"],
+        "bound_ms_coco_80x256": coco_rates["nms_bound_ms_80x256"],
         f"ms_b{NMS_TIMING_B2}": nms_rec[NMS_TIMING_B2]["ms"],
         **{f"{key}_n{n}_b{NMS_TIMING_B2}": rec[key] for n, rec in nms_large.items()
            for key in ("ms", "events_ms", "plain_ms", "bound_ms")},
@@ -1980,10 +2364,11 @@ def main() -> int:
              bf16_launches["fused_front"], front_err)):
         kernel_lines.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": n, "max_abs_err": err,
+            "launches": n, "max_abs_err": max(err, coco_rates["max_abs_err"].get(name, 0)),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "launches_identify": fi_launches[name],
+            "launches_coco": coco_launches[name],
         })
         if name == "fused_front":
             kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
@@ -1996,6 +2381,7 @@ def main() -> int:
                                       for k, v in train_rates.items()},
                       "trained_serving_launches": train_launches}))
     print(json.dumps({"identify": fi_rates, "identify_launches": fi_launches}))
+    print(json.dumps({"coco": coco_rates, "coco_launches": coco_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

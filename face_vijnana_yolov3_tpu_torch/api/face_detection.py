@@ -35,8 +35,11 @@ loader (data/native_loader.py, libjpeg) straight into the uint8 staging
 buffer when it builds, else through PIL; `FVY_JPEG_SCALED_DECODE=1` decodes
 at a reduced DCT scale (test mode: not bit-exact with a full decode).
 
-Not carried: the legacy `--mode` argparse CLI (ROADMAP.md queue 1 item
-10); distillation QAT (`int8_qat_steps`) and `bf16_front_mode="int8"`, both
+The docker variant's one-flag-per-hp CLI (`--mode test --raw_data_path
+... --image_size 416 ...`) runs through `legacy_main` whenever `--mode` is
+passed, as in the JAX package.
+
+Not carried: distillation QAT (`int8_qat_steps`) and `bf16_front_mode="int8"`, both
 measured harmful in the JAX package (ROADMAP.md, code the port should not
 carry). Deliberate divergence: eager PyTorch has no
 per-shape compile to amortise, so `detect_batch_fused` does not pad staged
@@ -750,15 +753,100 @@ def _parse_cli(argv: list[str]) -> tuple[str | None, list[str]]:
     return conf_path, overrides
 
 
+def legacy_main(argv: list[str], *,
+                device: torch.device | str | None = None) -> FaceDetectorPipeline:
+    """Docker-variant argparse surface, flag for flag
+    (reference docker/code/face_detection.py:1135-1155; the JAX package's
+    face_detection.py:1009-1058), on `device` (the card when None).
+
+    Maps the one-flag-per-hp spelling onto FdConf (`legacy_args_to_conf`)
+    and runs its mode; returns the pipeline.
+    """
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--mode")
+    parser.add_argument("--raw_data_path")
+    parser.add_argument("--output_file_path")
+    parser.add_argument("--image_size")
+    parser.add_argument("--num_filters")
+    parser.add_argument("--lr")
+    parser.add_argument("--beta_1")
+    parser.add_argument("--beta_2")
+    parser.add_argument("--decay")
+    parser.add_argument("--step_per_epoch")
+    parser.add_argument("--epochs")
+    parser.add_argument("--face_conf_th")
+    parser.add_argument("--nms_iou_th")
+    parser.add_argument("--num_cands")
+    parser.add_argument("--model_loading")
+    args = parser.parse_args(argv)
+    conf = legacy_args_to_conf(args)
+
+    fd = FaceDetectorPipeline(conf, device=device)
+    ts = time.time()
+    if conf.mode == "train":
+        fd.train()
+    elif conf.mode == "evaluate":
+        fd.evaluate()
+    elif conf.mode == "test":
+        fd.test()
+    te = time.time()
+    print("Elasped time: {0:f}s".format(te - ts))
+    return fd
+
+
+def legacy_args_to_conf(args) -> FdConf:
+    """Docker argparse namespace → FdConf (face_detection.py:1061-1092 of
+    the JAX package). `--num_filters` is the head channel count (docker
+    face_detection.py:76); the model artifact is the legacy
+    `face_detector.hd5` (docker :42); `--model_loading` (0/1) counts in
+    train mode only, evaluate/test force it on (docker :1100, :1124);
+    train derives batch_size = n_files // step_per_epoch (the docker
+    TrainingSequence's inverted batching, :608); the docker build's
+    RATIO_TH aspect correction (:415-422) is on."""
+    conf = FdConf(
+        mode=args.mode,
+        raw_data_path=args.raw_data_path or "",
+        test_path=args.raw_data_path or "",
+        output_file_path=args.output_file_path or "solution_fd.csv",
+        model_path="face_detector.hd5",
+        apply_face_region_ratio=True,
+    )
+    conf.nn_arch.image_size = int(args.image_size)
+    conf.nn_arch.bb_info_c_size = int(args.num_filters)
+    conf.hps.lr = float(args.lr)
+    conf.hps.beta_1 = float(args.beta_1)
+    conf.hps.beta_2 = float(args.beta_2)
+    conf.hps.decay = float(args.decay)
+    conf.hps.step = int(args.step_per_epoch)
+    conf.hps.epochs = int(args.epochs)
+    conf.hps.face_conf_th = float(args.face_conf_th)
+    conf.hps.nms_iou_th = float(args.nms_iou_th)
+    conf.hps.num_cands = int(args.num_cands)
+    conf.model_loading = (
+        int(args.model_loading) != 0 if conf.mode == "train" else True
+    )
+    if conf.mode == "train" and os.path.exists(
+        os.path.join(conf.raw_data_path, "training.csv")
+    ):
+        import pandas as pd
+
+        n_files = pd.read_csv(
+            os.path.join(conf.raw_data_path, "training.csv")
+        )["FILE"].nunique()
+        conf.hps.batch_size = max(1, n_files // max(1, conf.hps.step))
+    return conf
+
+
 def main(argv: list[str] | None = None, *,
          device: torch.device | str | None = None) -> FaceDetectorPipeline:
     """Run the mode `fd_conf.mode` names on `device` (the CUDA card when
-    None); returns the pipeline it built."""
+    None), or `legacy_main` when `--mode` is passed; returns the pipeline
+    it built."""
     argv = sys.argv[1:] if argv is None else argv
     if any(a == "--mode" or a.startswith("--mode=") for a in argv):
-        raise NotImplementedError(
-            "the legacy --mode argparse CLI is ROADMAP.md queue 1 item 10; "
-            "use --conf=... with fd_conf.* overrides")
+        return legacy_main(argv, device=device)
     conf_path, overrides = _parse_cli(argv)
     conf = load_conf(conf_path)
     apply_overrides(conf, overrides)

@@ -28,9 +28,12 @@ bucket padding, and the device ROI path without the padded sub-batches
 TripletDataset's generators are seeded from the pipeline's `seed` (None:
 fresh entropy, as the JAX package's unseeded ones). Refused, each with the
 ROADMAP.md item that carries it: `bf16_front_mode="int8"` (measured
-harmful in the JAX package; code the port should not carry), `model_axis
-> 1` (dense1 tensor parallelism, queue 1 item 11) and the reconstruction
-model (`create_face_reconst_model` / `reconstruct`, item 10).
+harmful in the JAX package; code the port should not carry) and
+`model_axis > 1` (dense1 tensor parallelism, queue 1 item 11). The
+experimental reconstruction decoder (`create_face_reconst_model`,
+`reconstruct`; models/recon.py) keeps its weights in
+`face_vijnana_recon_tpu.pt` in the working directory, the JAX package's
+checkpoint name with the port's suffix.
 """
 
 from __future__ import annotations
@@ -70,6 +73,9 @@ RESOURCE_TYPE_UCCS = "uccs"
 RESOURCE_TYPE_VGGFACE2 = "vggface2"
 
 EMBED_CHUNK = 64  # images per embed call (the JAX package's largest bucket)
+# The reconstruction decoder's checkpoint (the JAX package's
+# "face_vijnana_recon_tpu", as a .pt), in the working directory.
+RECON_CHECKPOINT = "face_vijnana_recon_tpu.pt"
 INT8_CALIB_IMAGES = 16  # int8 calibrates on the first embed's first 16 images
 
 
@@ -291,13 +297,32 @@ class FaceIdentifierPipeline:
         return losses
 
     def create_face_reconst_model(self):
-        raise NotImplementedError(
-            "the face reconstruction model (models/recon.py) is ROADMAP.md "
-            "queue 1 item 10 (not ported yet)")
+        """Build (or load) the experimental reconstruction decoder
+        (reference create_face_reconst_model, face_identification.py:1155-1488;
+        face_identification.py:309-330 of the JAX package): with
+        `face_vijana_recon_load` and an existing checkpoint it loads
+        RECON_CHECKPOINT, else it initialises from this identifier (bias
+        seed RECON_SEED, the JAX package's PRNGKey(2)) and saves it there."""
+        from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+        from face_vijnana_yolov3_tpu_torch.models.recon import FaceReconstructionModel
 
-    def reconstruct(self, facial_ids):
-        raise NotImplementedError(
-            "face reconstruction is ROADMAP.md queue 1 item 10 (not ported yet)")
+        self.recon_model = FaceReconstructionModel(
+            image_size=self.image_size, dense1_dim=self.nn_arch["dense1_dim"],
+            device=self.device)
+        if self.conf.face_vijana_recon_load and os.path.exists(RECON_CHECKPOINT):
+            sd = load_checkpoint(RECON_CHECKPOINT)
+        else:
+            sd = self.recon_model.init_state_dict(self.model.state_dict())
+            save_checkpoint(RECON_CHECKPOINT, sd)
+        self.recon_model.load_state_dict(sd)
+
+    @torch.inference_mode()
+    def reconstruct(self, facial_ids: np.ndarray) -> np.ndarray:
+        """(B, dense1_dim) ids → (B, S, S, 3) reconstructed images (numpy)."""
+        if not hasattr(self, "recon_model"):
+            self.create_face_reconst_model()
+        z = torch.as_tensor(np.asarray(facial_ids, np.float32), device=self.device)
+        return self.recon_model(z).cpu().numpy()
 
     def make_facial_ids_db(self):
         from face_vijnana_yolov3_tpu_torch.data.facedb import make_facial_ids_db

@@ -4,14 +4,14 @@ Port of face_vijnana_yolov3_tpu/core/keras_import.py:21-205 for the trunk,
 the detector and the identifier (`collect_keras_weights`,
 `trunk_from_keras`, `detector_from_keras_h5`, `identifier_from_keras_h5`,
 `_write_keras_h5`, `save_trunk_keras_h5`, `save_detector_keras_h5`,
-`save_identifier_keras_h5`). The files hold layer-named tensors
+`save_identifier_keras_h5`) and the full YOLOv3 of the COCO demo
+(`yolov3_from_keras_h5`, `save_yolov3_keras_h5`). The files hold layer-named tensors
 (`conv_i/kernel:0` HWIO, `bnorm_i/{gamma,beta,moving_mean,moving_variance}:0`,
 `output/{kernel,bias}:0`, `dense1/{kernel,bias}:0` with an (in, out)
 kernel) under `model_weights`, possibly nested; Keras 2.2.4 names datasets `kernel:0`, Keras 3 drops the `:0`, and both import. Reading
 gives the port's state dicts (OIHW, `convert.params_from_jax` naming);
 writing takes them and writes HWIO in the Keras 2.2.4 layout
-`model_weights/<layer>/<layer>/<weight>:0`. The full-YOLOv3 variant comes
-with its slice (ROADMAP.md queue 1 item 10).
+`model_weights/<layer>/<layer>/<weight>:0`.
 """
 
 from __future__ import annotations
@@ -20,7 +20,11 @@ import numpy as np
 import torch
 
 from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
-from face_vijnana_yolov3_tpu_torch.models.darknet import conv_layout, trunk_graph
+from face_vijnana_yolov3_tpu_torch.models.darknet import (
+    conv_layout,
+    trunk_graph,
+    yolov3_graph,
+)
 
 
 def collect_keras_weights(h5_path: str) -> dict[str, np.ndarray]:
@@ -146,3 +150,18 @@ def save_detector_keras_h5(state_dict: dict, h5_path: str) -> None:
     the `output` head); `detector_from_keras_h5` reads it back."""
     _write_keras_h5(h5_path, conv_layout(trunk_graph()), state_dict,
                     extra_layers=(("output", "head"),))
+
+
+def yolov3_from_keras_h5(h5_path: str) -> dict[str, torch.Tensor]:
+    """yolov3_model.h5 (the full 3-head COCO graph) → its state dict: the
+    75 convs, BNs on all but the three 255-channel heads, which carry a
+    bias (keras_import.py:101-113 of the JAX package)."""
+    weights = collect_keras_weights(h5_path)
+    return params_from_jax(*_trees_from_keras(weights, conv_layout(yolov3_graph())))
+
+
+def save_yolov3_keras_h5(state_dict: dict, h5_path: str) -> None:
+    """The full YOLOv3 as the demo CLI's `yolov3_model.h5` (reference
+    yolov3_detect.py:584-585: reloading skips the 248 MB darknet parse);
+    `yolov3_from_keras_h5` reads it back."""
+    _write_keras_h5(h5_path, conv_layout(yolov3_graph()), state_dict)

@@ -7,6 +7,9 @@ order of `conv_layout(ops)`: for BN convs beta, gamma, moving mean, moving
 variance (C floats each), then the kernel as [out, in, k, k] row-major; for
 bias convs, bias then kernel. [out, in, k, k] is already PyTorch's OIHW, so
 the kernel needs no transpose here (the JAX reader transposes it to HWIO).
+`save_darknet_weights` writes the same format (header 0.2.0, a zero
+seen-images counter), so seeded random weights can go through the paths
+that read a `yolov3.weights` file.
 """
 
 from __future__ import annotations
@@ -56,3 +59,22 @@ def load_darknet_weights(path: str, ops: list[tuple]) -> dict[str, np.ndarray]:
         sd[f"conv_{idx}.weight"] = (
             stream.take(out_c * in_c * k * k).reshape(out_c, in_c, k, k).copy())
     return sd
+
+
+def save_darknet_weights(path: str, state_dict: dict, ops: list[tuple]) -> None:
+    """Write `state_dict` (the keys `load_darknet_weights` gives) as a
+    darknet .weights file for the graph IR `ops`; it reads back equal."""
+    chunks = []
+    for idx, _in_c, _out_c, _k, _stride, bn in conv_layout(ops):
+        if bn:
+            chunks += [state_dict[f"bnorm_{idx}.{field}"]
+                       for field in ("beta", "gamma", "mean", "var")]
+        else:
+            chunks.append(state_dict[f"conv_{idx}.bias"])
+        chunks.append(state_dict[f"conv_{idx}.weight"])
+    with open(path, "wb") as f:
+        f.write(np.array([0, 2, 0], np.int32).tobytes())
+        f.write(bytes(8))
+        for c in chunks:
+            a = c.detach().cpu().numpy() if hasattr(c, "detach") else np.asarray(c)
+            f.write(np.ascontiguousarray(a, np.float32).tobytes())

@@ -1,8 +1,8 @@
-"""Face detection post-processing: decode + NMS + candidate selection.
+"""Detection post-processing: decode + NMS + candidate selection.
 
-Port of face_vijnana_yolov3_tpu/ops/postprocess.py:25-72, batched over B
-(the JAX package vmaps a per-image function). The COCO postprocess waits for
-the periphery slice.
+Port of face_vijnana_yolov3_tpu/ops/postprocess.py: the face postprocess
+batched over B (:25-72; the JAX package vmaps a per-image function) and
+one image's COCO postprocess (`coco_postprocess`, :77-124).
 """
 
 from __future__ import annotations
@@ -11,8 +11,12 @@ import dataclasses
 
 import torch
 
-from face_vijnana_yolov3_tpu_torch.ops.decode import decode_face_head
-from face_vijnana_yolov3_tpu_torch.ops.nms import nms_single_class
+from face_vijnana_yolov3_tpu_torch.ops.decode import (
+    correct_coco_boxes,
+    decode_coco_scale,
+    decode_face_head,
+)
+from face_vijnana_yolov3_tpu_torch.ops.nms import nms_multi_class, nms_single_class
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +62,44 @@ def select_candidates(boxes, scores, objness, mask, cfg: FacePostprocessConfig):
     counts = taken_valid.sum(dim=-1, dtype=torch.int32)
     cands = torch.where(taken_valid[..., None], rows, 0.0)
     return cands, counts
+
+
+def coco_candidates(netouts, image_h: int, image_w: int, obj_th: float = 0.5,
+                    top_k: int = 256, net_h: int = 416, net_w: int = 416):
+    """The COCO postprocess up to its NMS: decode the three (G, G, 255) scale
+    outputs, map the boxes to original-image integer coords, keep the top_k
+    candidates by gated objectness (-1 where the gate fails), and zero the
+    class scores of those that fail the gate.
+
+    `jax.lax.top_k` puts the lower index first among equal values, and with
+    fewer than top_k candidates through the gate every other value is -1,
+    so ties are the rule: a stable descending sort reproduces that order
+    (`torch.topk` promises none).
+
+    Returns boxes (top_k, 4), objness (top_k,), classes (top_k, 80), valid
+    (top_k,) bool.
+    """
+    parts = [decode_coco_scale(n, s, obj_th, net_h, net_w)
+             for s, n in enumerate(netouts)]
+    boxes, obj, classes, mask = (torch.cat(p) for p in zip(*parts))
+    boxes = correct_coco_boxes(boxes, image_h, image_w, net_h, net_w)
+
+    gated = torch.where(mask, obj, -1.0)
+    idx = torch.sort(gated, descending=True, stable=True).indices[:top_k]
+    mask_k = mask[idx]
+    classes_k = torch.where(mask_k[:, None], classes[idx], 0.0)
+    return boxes[idx], obj[idx], classes_k, mask_k
+
+
+def coco_postprocess(netouts, image_h: int, image_w: int, obj_th: float = 0.5,
+                     nms_th: float = 0.45, top_k: int = 256, net_h: int = 416,
+                     net_w: int = 416):
+    """The COCO demo's postprocess (yolov3_detect.py:593-604) of one image:
+    `coco_candidates`, then 80-class greedy NMS (one kernel launch).
+
+    Returns boxes (top_k, 4) integer-valued f32 in original-image coords,
+    objness (top_k,), classes (top_k, 80) after NMS, valid (top_k,) bool.
+    """
+    boxes, obj, classes, valid = coco_candidates(netouts, image_h, image_w, obj_th,
+                                                 top_k, net_h, net_w)
+    return boxes, obj, nms_multi_class(boxes, classes, nms_th), valid

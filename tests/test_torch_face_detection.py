@@ -237,11 +237,14 @@ def test_checkpoint_sidecar_and_refusals(slice_run, tmp_path):
 
 
 def test_unported_precisions_and_modes_raise(tmp_path):
+    """An unknown precision raises naming ROADMAP; `--mode` now reaches the
+    legacy CLI (tests/test_torch_legacy_cli.py), which, like the JAX
+    package's, refuses a flag set without the numeric flags."""
     conf = _conf(tmp_path, tmp_path / "x.csv")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_fd.FaceDetectorPipeline(conf, precision="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_fd.main(["--mode=test"])
+    with pytest.raises(TypeError):
+        port_fd.main(["--mode=test"], device="cpu")
 
 
 def test_prefetch_keeps_order_and_moves_tensors():

@@ -367,15 +367,17 @@ def test_cli_modes_on_the_cpu(fi, tmp_path, monkeypatch):
                     ["face_file"]], np.float32)).mean(0), atol=1e-6)
 
 
-def test_refused_options_cite_the_roadmap(fi):
+def test_refused_options_cite_the_roadmap(fi, tmp_path, monkeypatch):
+    """The refused options name their ROADMAP item; the reconstruction
+    decoder, refused until it was ported, now runs (its parity with the JAX
+    package is tests/test_torch_recon.py)."""
     root = fi["root"]
     for kw, item in (({"bf16_front_mode": "int8"}, "should not carry"),
                      ({"model_axis": 2}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv", **kw), device="cpu")
-    for call in (fi["pfi"].create_face_reconst_model, lambda: fi["pfi"].reconstruct(None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    monkeypatch.chdir(tmp_path)  # the decoder's checkpoint lands here
+    assert fi["pfi"].reconstruct(np.full((1, D), 0.5, np.float32)).shape == (1, S, S, 3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv"))

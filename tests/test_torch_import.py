@@ -6,9 +6,10 @@ f32, bf16 and int8 `detect_batch` on the CPU (the int8 one calibrates and runs
 the int8 convs and the fused residual blocks), the fused-front trunk
 (ops/front_fused.py) and one fake-quant training step, embed with a small
 identifier at f32, bf16 and int8, crop ROIs on the device path and match
-them against a registry, import the training, dataset, Keras-h5,
-native-loader, mAP, subject-DB and identification modules, then assert that
-neither `jax`
+them against a registry, run the full YOLOv3 at int8 through the COCO
+postprocess and the reconstruction decoder, import the training, dataset,
+Keras-h5, native-loader, mAP, subject-DB, identification, COCO demo, box
+selection and profiling modules, then assert that neither `jax`
 nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
 every source of the package and chip_smoke.py: no import of either, and no
 allow-list.
@@ -49,6 +50,11 @@ from face_vijnana_yolov3_tpu_torch.evals import identification
 from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
 from face_vijnana_yolov3_tpu_torch.ops import roi
 from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
+from face_vijnana_yolov3_tpu_torch.api import yolov3_detect
+from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
+from face_vijnana_yolov3_tpu_torch.models import darknet, recon
+from face_vijnana_yolov3_tpu_torch.ops.postprocess import coco_postprocess
+from face_vijnana_yolov3_tpu_torch.utils import box_select, profiling
 
 conf = FdConf(weights_path="does_not_exist.weights")
 conf.nn_arch.image_size = 64
@@ -81,6 +87,16 @@ crops = roi.roi_letterbox_device_windowed(
     window_h=64, window_w=64)
 idx, dist = match_embeddings(fim.embed(crops), embs[0])
 assert idx.shape == (1,) and bool(torch.isfinite(dist).all())
+yops = darknet.yolov3_graph()
+ysd = params_from_jax(*darknet.init_graph_params(yops, 0))
+x1 = torch.from_numpy(x[:1])
+heads = yolov3_detect.coco_forward(ysd, "int8", "cpu", x_calib=x1)(x1)
+boxes, obj, classes, valid = coco_postprocess(tuple(h[0] for h in heads), 64, 64,
+                                              0.0, 0.45, net_h=64, net_w=64)
+assert classes.shape == (100, 80), classes.shape
+rm = recon.FaceReconstructionModel(image_size=64, dense1_dim=8, device="cpu")
+rm.load_state_dict(rm.init_state_dict(fim.state_dict()))
+assert rm(embs[0]).shape == (2, 64, 64, 3)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "face_vijnana_yolov3_tpu"))
 assert not leaked, leaked
