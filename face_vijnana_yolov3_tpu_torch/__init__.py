@@ -4,25 +4,30 @@ The JAX package beside this one is the reference: every module here is held
 against its JAX counterpart by the `tests/test_torch_*.py` parity tests. This
 package never imports jax.
 
-What is ported so far: face detection (f32, bf16 and int8 serving, and
-training) and face identification (the triplet embedder at f32, bf16 and
+What is ported: face detection (f32, bf16 and int8 serving, and
+training), face identification (the triplet embedder at f32, bf16 and
 int8, device ROI crops, the registry match, the subject DB, the five
-`fi_conf` modes and triplet training):
+`fi_conf` modes and triplet training), the COCO demo, serving artifacts
+(`torch.export`) and multi-process data / tensor / spatial parallelism:
 
 models   darknet trunk op-IR + eval/training forwards, face detector (trunk +
          head), face identifier (trunk + dense1 + L2 normalize), int8 quant
 core     darknet .weights reader, `.pt` checkpoints + trainmeta sidecar,
-         Keras h5 weights in and out
+         Keras h5 weights in and out, FVYX serving artifacts (export)
 ops      letterbox geometry, cv2-faithful resize as matmuls, head decode,
          greedy NMS (hand-written CUDA sweep kernel + plain twin),
-         postprocess, int8 conv / residual-block and fused-front kernels,
-         ROI crops as matmuls, registry matching
+         postprocess, int8 conv / residual-block and fused-front kernels
+         (also the `fvy::` custom ops of ops/library.py), ROI crops as
+         matmuls, registry matching
 data     threaded prefetch with pinned-memory device upload, datasets,
          subject-face DB and triplets, seeded synthetic sets
-train    Keras Adam, the detector and triplet training loops
+train    Keras Adam, the detector and triplet training loops (one
+         process, or data / dense1-tensor parallel over a mesh)
+parallel process groups and the ("data", "model") mesh, data-parallel
+         serving, height-split detection
 evals    the mAP and identification metric harnesses
 api      FaceDetectorPipeline, FaceIdentifierPipeline, the `--conf=...`
-         CLIs, the evaluate CLI
+         CLIs, the evaluate CLI, the export CLI
 convert  JAX numpy param trees <-> torch state dicts
 kernels  nvcc build + ctypes binding of the CUDA sources under `csrc/`
 profile_detect  where the card's time goes in detect_batch (torch.profiler)

@@ -337,6 +337,13 @@ class FaceDetectorPipeline:
     @torch.inference_mode()
     def _detect(self, images: torch.Tensor):
         """(B, S, S, 3) f32 on the device → (cands, counts) on the device."""
+        return self._detect_program(images)
+
+    def _detect_program(self, images: torch.Tensor):
+        """The serving program `_detect` runs, outside inference mode: trunk,
+        head and `face_postprocess_batch` (the JAX pipeline's `_detect_fn`),
+        which core/export.export_detector traces. int8 must be calibrated;
+        bf16 serves the guard depth `_bf16_front_depth` resolves now."""
         if self.precision == "int8":
             if self._qparams is None:
                 raise RuntimeError(
@@ -392,6 +399,7 @@ class FaceDetectorPipeline:
         """
         from face_vijnana_yolov3_tpu_torch.data.uccs import DetectionDataset
         from face_vijnana_yolov3_tpu_torch.models.darknet import split_state_dict
+        from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
         from face_vijnana_yolov3_tpu_torch.train.trainer import train_detector
 
         dataset = DetectionDataset(
@@ -408,6 +416,7 @@ class FaceDetectorPipeline:
             {k: v.detach().clone() for k, v in self.model.state_dict().items()})
         params, state, losses = train_detector(
             self.model, params, state, dataset, self.hps,
+            mesh=mesh_lib.default_mesh(),
             checkpoint_path=ckpt_path,
             init_opt_state=self.opt_state,
             history_path=ckpt_path + "_history.jsonl",
@@ -418,7 +427,7 @@ class FaceDetectorPipeline:
         )
         self.model.load_state_dict({**params, **state})
         print("Save the model.")
-        if keras_h5:
+        if keras_h5 and mesh_lib.is_main_process():
             from face_vijnana_yolov3_tpu_torch.core.keras_import import (
                 save_detector_keras_h5,
             )
@@ -851,6 +860,12 @@ def main(argv: list[str] | None = None, *,
     conf = load_conf(conf_path)
     apply_overrides(conf, overrides)
     fd_conf = conf.fd_conf
+    if fd_conf.mode == "train":
+        # Under torchrun (WORLD_SIZE set) each rank trains its rows of every
+        # batch (parallel/mesh.py); one process: a no-op.
+        from face_vijnana_yolov3_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=device)
     fd = FaceDetectorPipeline(fd_conf, device=device)
     ts = time.time()
     if fd_conf.mode == "train":

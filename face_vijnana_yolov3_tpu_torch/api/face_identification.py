@@ -26,10 +26,11 @@ so embeds run in chunks of at most 64 images without the power-of-two
 bucket padding, and the device ROI path without the padded sub-batches
 (tests/test_torch_identification.py shows the rows unchanged).
 TripletDataset's generators are seeded from the pipeline's `seed` (None:
-fresh entropy, as the JAX package's unseeded ones). Refused, each with the
-ROADMAP.md item that carries it: `bf16_front_mode="int8"` (measured
-harmful in the JAX package; code the port should not carry) and
-`model_axis > 1` (dense1 tensor parallelism, queue 1 item 11). The
+fresh entropy, as the JAX package's unseeded ones). Refused:
+`bf16_front_mode="int8"` (measured harmful in the JAX package; ROADMAP.md,
+code the port should not carry). `train` runs on the mesh of
+parallel/mesh.py when the process group is up or `model_axis` > 1 (dense1
+tensor parallelism over `model_axis` ranks; `init_distributed` first). The
 experimental reconstruction decoder (`create_face_reconst_model`,
 `reconstruct`; models/recon.py) keeps its weights in
 `face_vijnana_recon_tpu.pt` in the working directory, the JAX package's
@@ -111,10 +112,6 @@ class FaceIdentifierPipeline:
                 "fi_conf.bf16_front_mode='int8' is not carried into the port: "
                 "it is EXPERIMENTAL and measured harmful in the JAX package "
                 "(ROADMAP.md, code the port should not carry)")
-        if int(getattr(fi, "model_axis", 1)) > 1:
-            raise NotImplementedError(
-                "fi_conf.model_axis > 1 (dense1 tensor parallelism) is ROADMAP.md "
-                "queue 1 item 11; the port trains and serves on one card")
         if precision not in ("float32", "bfloat16", "int8"):
             raise NotImplementedError(
                 f"precision={precision!r}: the port serves float32, bfloat16 and "
@@ -200,6 +197,11 @@ class FaceIdentifierPipeline:
     def _embed_tensor(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) f32 on the device → (B, D) f32 on the device, in
         this pipeline's precision (int8 must be calibrated)."""
+        return self._embed_program(x)
+
+    def _embed_program(self, x: torch.Tensor) -> torch.Tensor:
+        """The embed `_embed_tensor` runs, outside inference mode (the JAX
+        pipeline's `_embed_raw`), which core/export.export_embedder traces."""
         if self.precision == "int8":
             return self.model.embed_quant(self._q_embed, x)
         if self.precision == "bfloat16":
@@ -260,6 +262,7 @@ class FaceIdentifierPipeline:
 
         from face_vijnana_yolov3_tpu_torch.data.facedb import TripletDataset
         from face_vijnana_yolov3_tpu_torch.models.darknet import split_state_dict
+        from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
         from face_vijnana_yolov3_tpu_torch.train.trainer import train_identifier
 
         db_csv, faces_subdir, _, _, pairs_pickle = self._db_names()
@@ -273,6 +276,7 @@ class FaceIdentifierPipeline:
             {k: v.detach().clone() for k, v in self.model.state_dict().items()})
         params, state, losses = train_identifier(
             self.model, params, state, dataset, self.hps,
+            mesh=mesh_lib.default_mesh(int(getattr(self.conf, "model_axis", 1))),
             checkpoint_path=ckpt_path,
             init_opt_state=self.opt_state,
             history_path=ckpt_path + "_history.jsonl",
@@ -288,7 +292,7 @@ class FaceIdentifierPipeline:
         self._folded = None
         self._q_embed = None
         print("Save the model.")
-        if keras_h5:
+        if keras_h5 and mesh_lib.is_main_process():
             from face_vijnana_yolov3_tpu_torch.core.keras_import import (
                 save_identifier_keras_h5,
             )

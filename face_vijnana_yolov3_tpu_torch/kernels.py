@@ -19,6 +19,13 @@ line needs no `-lcuda`.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no nvcc.
+
+Each kernel is also the `torch.library` custom op `fvy::<name>`
+(ops/library.py), which `torch.export` records and an exported artifact
+calls. An eager call reaches the kernel directly (`direct_route`) and
+goes through the op only while exporting: the dispatcher costs host time
+on every call (PERF.md §6; chip_smoke.py times both routes). Either
+way the op's CUDA kernel and the eager call are one function.
 """
 
 from __future__ import annotations
@@ -33,12 +40,28 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
 )
+
+
+def direct_route() -> bool:
+    """Whether a wrapper calls its implementation directly: always but
+    while `torch.export` traces (the tensors are fake there and the op must
+    be recorded)."""
+    return not torch.compiler.is_exporting()
+
+
+def fvy_ops():
+    """`torch.ops.fvy`, with the four ops registered (ops/library.py)."""
+    from face_vijnana_yolov3_tpu_torch.ops import library  # noqa: F401
+
+    return torch.ops.fvy
 
 
 def _sources() -> list[Path]:

@@ -398,24 +398,50 @@ def split_state_dict(sd: dict) -> tuple[dict, dict]:
     return params, state
 
 
-def _act_fq(h: torch.Tensor):
+def _wide(h: torch.Tensor) -> torch.Tensor:
+    """h in f32 (the training forward's statistics and outputs), or kept in
+    f64: a float64 forward is exact enough to hold the data-parallel
+    collectives to one process (tests/test_torch_multiprocess.py)."""
+    return h if h.dtype == torch.float64 else h.float()
+
+
+def _act_fq(h: torch.Tensor, group=None):
     """Per-channel int8 activation fake-quant of an NCHW activation with a
     straight-through gradient (darknet.py:254-267): s = max(batch maxabs,
     1e-6) / 127, held constant; value hf + (clip(round(hf / s), ±127) * s -
     hf), whose gradient is the identity. torch.round rounds half to even, as
-    jnp.round. Returns (f32 value, (C,) scale)."""
-    hf = h.float()
-    s = torch.clamp_min(hf.detach().abs().amax(dim=(0, 2, 3)), 1e-6) / 127.0
+    jnp.round. With a data-parallel `group` the maxabs is the whole batch's
+    (a MAX over the group). Returns (f32 value, (C,) scale)."""
+    hf = _wide(h)
+    amax = hf.detach().abs().amax(dim=(0, 2, 3))
+    if group is not None:
+        from face_vijnana_yolov3_tpu_torch.parallel.mesh import all_reduce_max_
+
+        amax = all_reduce_max_(amax, group)
+    s = torch.clamp_min(amax, 1e-6) / 127.0
     sb = s[:, None, None]
     q = torch.clamp(torch.round(hf / sb), -127.0, 127.0) * sb
     return hf + (q - hf).detach(), s
+
+
+def _global_moments(hf: torch.Tensor, group):
+    """(E[x], E[x²]) per channel of an NCHW f32 activation over every rank's
+    rows: the sums and the element count all-reduced over `group`
+    (differentiably)."""
+    from face_vijnana_yolov3_tpu_torch.parallel.mesh import all_reduce_sum
+
+    c = hf.shape[1]
+    count = hf.new_full((1,), hf.numel() / c)
+    sums = all_reduce_sum(torch.cat([hf.sum(dim=(0, 2, 3)),
+                                     (hf * hf).sum(dim=(0, 2, 3)), count]), group)
+    return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
 
 def _weight_fq(kernel: torch.Tensor, s_in: torch.Tensor | None) -> torch.Tensor:
     """Per-output-channel int8 weight fake-quant of an OIHW kernel with the
     input activation scales folded in, as quantize_folded deploys it
     (darknet.py:270-292), straight-through; s_in None = no input scales."""
-    k = kernel.float()
+    k = _wide(kernel)
     k_eff = k * s_in[None, :, None, None] if s_in is not None else k
     w_scale = torch.clamp_min(k_eff.detach().abs().amax(dim=(1, 2, 3)), 1e-8) / 127.0
     ws = w_scale[:, None, None, None]
@@ -448,7 +474,7 @@ def remat_segments(ops: list[tuple]) -> list[list[tuple]]:
 
 
 def _apply_graph_remat(params, state, x, ops, *, remat, compute_dtype, bn_momentum,
-                       fakequant):
+                       fakequant, group=None):
     """apply_graph_train segment by segment (darknet.py:404-443): the first
     `remat` segments (all of them for True) run under
     torch.utils.checkpoint, which keeps only each segment's input and
@@ -470,7 +496,7 @@ def _apply_graph_remat(params, state, x, ops, *, remat, compute_dtype, bn_moment
             outs, st = apply_graph_train(
                 params, state, h, core + [("output", "__h")],
                 compute_dtype=compute_dtype, bn_momentum=bn_momentum,
-                fakequant=fakequant)
+                fakequant=fakequant, group=group)
             seg_bn = {f"bnorm_{op[1]}" for op in core if op[0] == "conv" and op[5]}
             return outs["__h"].to(compute_dtype), {
                 k: v for k, v in st.items() if k.rsplit(".", 1)[0] in seg_bn}
@@ -488,8 +514,8 @@ def _apply_graph_remat(params, state, x, ops, *, remat, compute_dtype, bn_moment
 
 def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tuple], *,
                       compute_dtype=torch.float32, bn_momentum: float | None = None,
-                      fakequant: bool = False,
-                      remat: bool | int = False) -> tuple[dict, dict]:
+                      fakequant: bool = False, remat: bool | int = False,
+                      group=None) -> tuple[dict, dict]:
     """Training-mode forward (JAX `apply_graph(train=True)`): x (B, S, S, 3)
     NHWC → ({output name: NHWC f32}, new_state).
 
@@ -506,11 +532,18 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
     convs need TF32 off (the caller sets it: JAX Precision.HIGHEST).
     Activations run NCHW inside. remat (True, or an int N for the first N
     segments) checkpoints residual-block segments (`_apply_graph_remat`).
+
+    group: the data-parallel process group when x is this rank's share of a
+    global batch. The BN moments are then the global batch's (the sums and
+    the count through a differentiable all-reduce, so each rank's backward
+    also sees the other ranks' rows) and the fake-quant scales the global
+    maxabs, as the JAX program computes them over its sharded batch.
     """
     if remat:
         return _apply_graph_remat(params, state, x, ops, remat=remat,
                                   compute_dtype=compute_dtype,
-                                  bn_momentum=bn_momentum, fakequant=fakequant)
+                                  bn_momentum=bn_momentum, fakequant=fakequant,
+                                  group=group)
     mom = BN_MOMENTUM if bn_momentum is None else bn_momentum
     saved: dict[str, torch.Tensor] = {}
     saved_scale: dict[str, torch.Tensor | None] = {}
@@ -520,7 +553,7 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
     fq_scale = None
     fq_skip = fakequant_skip_ops(ops) if fakequant else set()
     if fakequant:
-        h, fq_scale = _act_fq(h)
+        h, fq_scale = _act_fq(h, group)
     for i, op in enumerate(ops):
         kind = op[0]
         if kind == "conv":
@@ -532,9 +565,13 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
                          stride=stride, padding=k // 2)
             if bn:
                 name = f"bnorm_{idx}"
-                hf = h.float()
-                mean = hf.mean(dim=(0, 2, 3))
-                var = torch.clamp_min((hf * hf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+                hf = _wide(h)
+                if group is None:
+                    mean = hf.mean(dim=(0, 2, 3))
+                    ex2 = (hf * hf).mean(dim=(0, 2, 3))
+                else:
+                    mean, ex2 = _global_moments(hf, group)
+                var = torch.clamp_min(ex2 - mean * mean, 0.0)
                 inv = torch.rsqrt(var + BN_EPS)
                 scale = inv * params[f"{name}.gamma"]
                 h = ((hf - mean[:, None, None]) * scale[:, None, None]
@@ -548,7 +585,7 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
             if act:
                 h = leaky(h)
             if fakequant and i not in fq_skip:
-                h, fq_scale = _act_fq(h)
+                h, fq_scale = _act_fq(h, group)
             h = h.to(compute_dtype)
         elif kind in ("save", "mark"):
             saved[op[1]] = h
@@ -556,7 +593,7 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
         elif kind == "add":
             h = saved[op[1]] + h
             if fakequant:
-                h, fq_scale = _act_fq(h)
+                h, fq_scale = _act_fq(h, group)
                 h = h.to(compute_dtype)
         elif kind == "restore":
             h = saved[op[1]]
@@ -564,12 +601,12 @@ def apply_graph_train(params: dict, state: dict, x: torch.Tensor, ops: list[tupl
         elif kind == "concat":
             h = torch.cat([h, saved[op[1]]], dim=1)
             if fakequant:
-                h, fq_scale = _act_fq(h)
+                h, fq_scale = _act_fq(h, group)
                 h = h.to(compute_dtype)
         elif kind == "upsample":
             h = h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         elif kind == "output":
-            outputs[op[1]] = h.float().permute(0, 2, 3, 1)
+            outputs[op[1]] = _wide(h).permute(0, 2, 3, 1)
         else:
             raise ValueError(f"unknown op {op}")
     return outputs, new_state

@@ -82,15 +82,16 @@ class FaceDetectorModel(darknet.Darknet):
 
     def apply_train(self, params: dict, state: dict, x: torch.Tensor, *,
                     compute_dtype=torch.float32, bn_momentum=None,
-                    fakequant: bool = False):
+                    fakequant: bool = False, group=None):
         """Training forward (detector.py:82-100): (B, S, S, 3) NHWC →
         ((B, S/32, S/32, 6) f32 head, new BN state). params/state are
         state-dict-named tensors (`darknet.split_state_dict`); the head conv
         runs in `compute_dtype` and is never fake-quantized (the deployed
-        int8 program serves a bf16 head)."""
+        int8 program serves a bf16 head). group: data-parallel process
+        group (darknet.apply_graph_train)."""
         outs, new_state = darknet.apply_graph_train(
             params, state, x, self.ops, compute_dtype=compute_dtype,
-            bn_momentum=bn_momentum, fakequant=fakequant)
+            bn_momentum=bn_momentum, fakequant=fakequant, group=group)
         head = {"kernel": params["head.weight"], "bias": params["head.bias"]}
         return head_conv(outs["trunk"].to(compute_dtype), head, compute_dtype), new_state
 

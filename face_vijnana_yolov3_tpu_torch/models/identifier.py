@@ -49,14 +49,31 @@ def init_dense1(seed: int, flat_dim: int, dense1_dim: int) -> dict:
     }
 
 
-def dense_l2norm(dense: dict, feat: torch.Tensor, compute_dtype) -> torch.Tensor:
+def dense_l2norm(dense: dict, feat: torch.Tensor, compute_dtype,
+                 tp=None) -> torch.Tensor:
     """(B, h, w, C) NHWC trunk feature → (B, D) f32 unit embeddings:
     Flatten (H, W, C), dense1 in `compute_dtype` (f32 with TF32 off; bf16
     operands with a bf16 result), + the f32 bias, relu, L2 normalize
-    (identifier.py:98-118). `dense` holds "weight" (D, flat) and "bias"."""
+    (identifier.py:98-118). `dense` holds "weight" (D, flat) and "bias".
+
+    tp = (model group, rows): tensor parallelism. "weight" then holds only
+    the kernel rows `rows` of the flattened feature (columns of the
+    transposed kernel); this rank multiplies its slice of the feature and
+    the partial products are summed over the group (forward all-reduce,
+    backward identity), the bias added once after. The feature's gradient
+    is summed over the group in the backward (each rank's covers its rows),
+    so the replicated trunk gets the whole gradient on every model rank."""
     flat = feat.reshape(feat.shape[0], -1).to(compute_dtype)
+    if tp is not None:
+        from face_vijnana_yolov3_tpu_torch.parallel.mesh import sum_backward
+
+        flat = sum_backward(flat, tp[0])[:, tp[1]]
     with darknet.exact_f32():
         h = flat @ dense["weight"].to(compute_dtype).t()
+    if tp is not None:
+        from face_vijnana_yolov3_tpu_torch.parallel.mesh import sum_forward
+
+        h = sum_forward(h, tp[0])
     h = torch.relu(h.float() + dense["bias"].float())
     norm = torch.sqrt(torch.clamp_min(torch.sum(h * h, dim=-1, keepdim=True),
                                       L2_NORM_EPS))
@@ -112,17 +129,20 @@ class FaceIdentifierModel(darknet.Darknet):
 
     def embed_train(self, params: dict, state: dict, x: torch.Tensor, *,
                     compute_dtype=torch.float32, bn_momentum=None,
-                    fakequant: bool = False, remat: bool | int = False):
+                    fakequant: bool = False, remat: bool | int = False,
+                    group=None, tp=None):
         """Training forward (identifier.py:60-95): (B, S, S, 3) NHWC →
         ((B, D) f32 unit embeddings, new BN state). params/state are
         state-dict-named tensors (`darknet.split_state_dict`); dense1 runs
         in `compute_dtype` and is never fake-quantized (the deployed int8
-        program serves a bf16 dense1)."""
+        program serves a bf16 dense1). group: the data-parallel process
+        group (darknet.apply_graph_train); tp: dense1's tensor parallelism
+        (`dense_l2norm`)."""
         outs, new_state = darknet.apply_graph_train(
             params, state, x, self.ops, compute_dtype=compute_dtype,
-            bn_momentum=bn_momentum, fakequant=fakequant, remat=remat)
+            bn_momentum=bn_momentum, fakequant=fakequant, remat=remat, group=group)
         dense = {"weight": params["dense1.weight"], "bias": params["dense1.bias"]}
-        return dense_l2norm(dense, outs["trunk"], compute_dtype), new_state
+        return dense_l2norm(dense, outs["trunk"], compute_dtype, tp=tp), new_state
 
     def apply_train(self, params: dict, state: dict, x: torch.Tensor, **kw):
         """`embed_train` under the name train/trainer.finalize_bn_stats calls."""
@@ -130,15 +150,16 @@ class FaceIdentifierModel(darknet.Darknet):
 
     def triplet_forward(self, params: dict, state: dict, anchors, positives, negatives,
                         *, compute_dtype=torch.float32, remat: bool | int = False,
-                        fakequant: bool = False):
+                        fakequant: bool = False, group=None, tp=None):
         """One trunk pass over the stacked [a; p; n] batch (BatchNorm
         statistics over all 3B images) → ((B, 3D) [ea | ep | en], new
-        state) (identifier.py:168-180)."""
+        state) (identifier.py:168-180). group / tp: `embed_train`."""
         b = anchors.shape[0]
         stacked = torch.cat([anchors, positives, negatives], dim=0)
         emb, new_state = self.embed_train(params, state, stacked,
                                           compute_dtype=compute_dtype,
-                                          fakequant=fakequant, remat=remat)
+                                          fakequant=fakequant, remat=remat,
+                                          group=group, tp=tp)
         return torch.cat([emb[:b], emb[b:2 * b], emb[2 * b:]], dim=-1), new_state
 
     @staticmethod
@@ -196,7 +217,8 @@ class FaceIdentifierModel(darknet.Darknet):
 
 def triplet_step_loss(out: torch.Tensor, weights: torch.Tensor, dim: int, *,
                       mining: str = "random", sid_a=None, sid_n=None,
-                      alpha: float = TRIPLET_ALPHA) -> torch.Tensor:
+                      alpha: float = TRIPLET_ALPHA, pool=None,
+                      weight_sum=None) -> torch.Tensor:
     """The training loss of one triplet step (trainer.py:371-415): the
     weighted mean of max(d_ap − d_an + α, 0) over the `_pad_batch` weights.
 
@@ -204,13 +226,22 @@ def triplet_step_loss(out: torch.Tensor, weights: torch.Tensor, dim: int, *,
     3B embeddings: the closest with d_ap < d_an < d_ap + α among rows of
     another subject with weight > 0, else the closest harder than the
     positive, else the closest valid one (a masked (B, 3B) argmin; the
-    first of tied minima, as jnp.argmin)."""
+    first of tied minima, as jnp.argmin).
+
+    Data parallel: `out` and the rest are this rank's rows; pool = (out,
+    weights, sid_a, sid_n) of the whole batch, gathered in batch order (the
+    semi-hard pool is all 3B global embeddings, in the global [a; p; n]
+    order), and weight_sum the whole batch's weight sum, so the rank's loss
+    is its share of the global weighted mean."""
     ea, ep, en = out[:, :dim], out[:, dim:2 * dim], out[:, 2 * dim:]
     d_ap = torch.sqrt(torch.sum((ea - ep) ** 2, dim=-1))
     if mining == "semi_hard":
-        pool = torch.cat([ea, ep, en], dim=0)                      # (3B, D)
-        pool_sid = torch.cat([sid_a, sid_a, sid_n])                # (3B,)
-        pool_w = torch.cat([weights] * 3)
+        g_out, g_w, g_sa, g_sn = pool if pool is not None else (out, weights, sid_a,
+                                                               sid_n)
+        pool = torch.cat([g_out[:, :dim], g_out[:, dim:2 * dim], g_out[:, 2 * dim:]],
+                         dim=0)                                    # (3B, D)
+        pool_sid = torch.cat([g_sa, g_sa, g_sn])                   # (3B,)
+        pool_w = torch.cat([g_w] * 3)
         d_all = torch.sqrt(torch.clamp_min(
             torch.sum((ea[:, None] - pool[None]) ** 2, dim=-1), 1e-12))  # (B, 3B)
         valid = (pool_sid[None, :] != sid_a[:, None]) & (pool_w[None, :] > 0.0)
@@ -226,5 +257,6 @@ def triplet_step_loss(out: torch.Tensor, weights: torch.Tensor, dim: int, *,
     else:  # "random": the negative TripletDataset drew
         d_an = torch.sqrt(torch.sum((ea - en) ** 2, dim=-1))
     per = torch.clamp_min(d_ap - d_an + alpha, 0.0)
-    return torch.sum(per * weights) / torch.sum(weights)
+    return torch.sum(per * weights) / (torch.sum(weights) if weight_sum is None
+                                       else weight_sum)
 

@@ -400,8 +400,10 @@ def to_device(qparams: dict, device) -> dict:
     dev = torch.from_numpy(flat).to(device)
     sizes = [s.size for s in scales]
     n = sum(sizes)
-    out["act_scales_f32"] = list(torch.split(dev[:n], sizes))
-    out["act_inv_f32"] = list(torch.split(dev[n:], sizes))
+    # Separate tensors, not views of one buffer: torch.export.save keeps a
+    # program's constants by storage, and views of one are not kept apart.
+    out["act_scales_f32"] = [t.clone() for t in torch.split(dev[:n], sizes)]
+    out["act_inv_f32"] = [t.clone() for t in torch.split(dev[n:], sizes)]
     return out
 
 

@@ -10,7 +10,8 @@ epilogues ops/conv_int8.py describes. A CUDA tensor goes to the
 hand-written kernel in csrc/block_int8.cu (TMA-fed wgmma; the 1x1 result
 stays in shared memory in the layout the 3x3's products read), with the
 band and channel split that `launch_config` picks; a CPU tensor to `block_int8_reference`, two plain int8
-convs. There is no fallback between the two. The Pallas `shift_mode`
+convs. There is no fallback between the two. The pair is also the custom
+op `fvy::block_int8` (ops/library.py). The Pallas `shift_mode`
 switch worked around Mosaic and has no counterpart here.
 """
 
@@ -20,6 +21,7 @@ import functools
 
 import torch
 
+from face_vijnana_yolov3_tpu_torch import kernels
 from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
     _check_cuda,
     conv_int8_reference,
@@ -122,11 +124,27 @@ def block_int8(x_q: torch.Tensor, w1_q: torch.Tensor, w2_q: torch.Tensor,
     w1_q (Ch, 1, 1, C) and w2_q (C, 3, 3, Ch) int8, OHWI (input scales
     pre-folded, as quantize_folded leaves them); ws1, b1, inv_s_mid (Ch,)
     and ws2, b2, skip_s, inv_s_out (C,) f32. → (B, H, W, C) int8 at the
-    post-add activation scales.
+    post-add activation scales. Eager calls run `block_int8_impl`; under
+    `torch.export` the call is the op `fvy::block_int8`.
     """
     args = (x_q, w1_q, w2_q, ws1, b1, inv_s_mid, ws2, b2, skip_s, inv_s_out)
+    if kernels.direct_route():
+        return block_int8_impl(*args)
+    return kernels.fvy_ops().block_int8(*args)
+
+
+def block_int8_impl(*args) -> torch.Tensor:
+    """The plain version for CPU tensors, else the kernel (`block_int8_cuda`)."""
     if all(a.device.type == "cpu" for a in args):
         return block_int8_reference(*args)
+    return block_int8_cuda(*args)
+
+
+def block_int8_cuda(x_q, w1_q, w2_q, ws1, b1, inv_s_mid, ws2, b2, skip_s,
+                    inv_s_out) -> torch.Tensor:
+    """Check the operands, then launch csrc/block_int8.cu on the current
+    stream; raises on anything the kernel does not take or a failed launch."""
+    args = (x_q, w1_q, w2_q, ws1, b1, inv_s_mid, ws2, b2, skip_s, inv_s_out)
     b, h, w, c = x_q.shape
     ch = w1_q.shape[0]
     if (w1_q.shape != (ch, 1, 1, c) or w2_q.shape != (c, 3, 3, ch)
@@ -148,8 +166,6 @@ def block_int8(x_q: torch.Tensor, w1_q: torch.Tensor, w2_q: torch.Tensor,
     out = torch.empty_like(x_q)
     if out.numel() == 0:
         return out
-    from face_vijnana_yolov3_tpu_torch import kernels
-
     lib = kernels.load()
     rows, n_split = launch_config(b, h, w, c, ch)
     stream = torch.cuda.current_stream(dev).cuda_stream

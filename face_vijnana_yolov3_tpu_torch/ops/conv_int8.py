@@ -22,7 +22,9 @@ A CUDA tensor goes to the hand-written kernel in csrc/conv_int8.cu (a
 TMA-fed wgmma implicit GEMM when Cin is a multiple of 32, else the gather
 kernel that conv_0 takes), with the tile that `launch_config` picks; a CPU
 tensor to `conv_int8_reference`. There is no fallback between the two: a
-CUDA call that cannot build, encode its tensor maps or launch raises.
+CUDA call that cannot build, encode its tensor maps or launch raises. The
+pair is also the custom op `fvy::conv_int8` (ops/library.py), which
+`torch.export` records in an exported program.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from face_vijnana_yolov3_tpu_torch import kernels
 from face_vijnana_yolov3_tpu_torch.models.darknet import leaky as leaky_relu
 
 
@@ -179,14 +182,33 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
     x_q (B, H, W, Cin) int8; w_q (Cout, k, k, Cin) int8 with k in {1, 3};
     w_scale, bias, inv_out (Cout,) f32; skip_q (B, Ho, Wo, Cout) int8 with
-    skip_s (Cout,) f32, or neither. → (B, Ho, Wo, Cout) int8.
+    skip_s (Cout,) f32, or neither. → (B, Ho, Wo, Cout) int8. Eager calls
+    run `conv_int8_impl`; under `torch.export` the call is the op
+    `fvy::conv_int8` (kernels.direct_route).
     """
     if (skip_q is None) != (skip_s is None):
         raise ValueError("conv_int8: pass skip_q and skip_s together")
+    args = (x_q, w_q, w_scale, bias, inv_out, skip_q, skip_s, int(stride), bool(leaky))
+    if kernels.direct_route():
+        return conv_int8_impl(*args)
+    return kernels.fvy_ops().conv_int8(*args)
+
+
+def conv_int8_impl(x_q, w_q, w_scale, bias, inv_out, skip_q, skip_s, stride: int,
+                   leaky: bool) -> torch.Tensor:
+    """The plain version for CPU tensors, else the kernel (`conv_int8_cuda`)."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
         return conv_int8_reference(x_q, w_q, w_scale, bias, inv_out,
                                    stride=stride, leaky=leaky, skip_q=skip_q,
                                    skip_s=skip_s)
+    return conv_int8_cuda(x_q, w_q, w_scale, bias, inv_out, skip_q, skip_s,
+                          stride, leaky)
+
+
+def conv_int8_cuda(x_q, w_q, w_scale, bias, inv_out, skip_q, skip_s, stride: int,
+                   leaky: bool) -> torch.Tensor:
+    """Check the operands, then launch csrc/conv_int8.cu on the current
+    stream; raises on anything the kernel does not take or a failed launch."""
     b, h, w, cin = x_q.shape
     cout, k, k2, wcin = w_q.shape
     if k not in (1, 3) or k2 != k or wcin != cin or stride not in (1, 2):
@@ -210,8 +232,6 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     out = torch.empty((b, ho, wo, cout), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    from face_vijnana_yolov3_tpu_torch import kernels
-
     lib = kernels.load()
     tile_w, tile_h = launch_config(h, w, cin, k, stride)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -26,7 +26,8 @@ tree of models/s2d.build_s2d_folded; the port does not carry s2d (its
 motivation was TPU tiling) and reads the ordinary folded `conv_0`/`conv_1`
 kernels (OIHW). A JAX `folded_s2d` tree converted by
 `convert.folded_from_jax` works unchanged: its extra `s2d_conv*` keys are
-ignored.
+ignored. The custom op `fvy::fused_front` (ops/library.py) takes the
+re-laid weights of `front_kernel_weights` instead of the dict.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from face_vijnana_yolov3_tpu_torch import kernels
 from face_vijnana_yolov3_tpu_torch.models import darknet
 
 C0, C1 = 32, 64  # conv_0 and conv_1 output channels (darknet.trunk_graph)
@@ -89,21 +91,49 @@ def front_kernel_weights(folded: dict):
             w1.to(torch.bfloat16).contiguous(), b1.float().contiguous())
 
 
+def weights_to_folded(w0, b0, w1, b1) -> dict:
+    """Inverse of `front_kernel_weights`: the bf16-rounded conv_0/conv_1
+    kernels back in OIHW f32 with their biases, for `fused_front_plain`
+    (which rounds kernels to bf16 itself, so nothing changes)."""
+    k0 = w0.float().reshape(C0, 3, 4, 4)[:, :, :3, :3].permute(0, 3, 1, 2)
+    k1 = w1.float().reshape(C1, 3, 3, C0).permute(0, 3, 1, 2)
+    return {"conv_0": {"kernel": k0, "bias": b0}, "conv_1": {"kernel": k1, "bias": b1}}
+
+
 def fused_front(x: torch.Tensor, folded: dict, *,
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, S, S, 3) NHWC f32 → conv_1's output (B, S/2, S/2, 64), post-leaky,
     in `compute_dtype`. `folded` holds the folded "conv_0" and "conv_1"
     ({"kernel" OIHW f32, "bias" f32}) on x's device. Square input, even S.
-    The CUDA kernel computes in bf16 only."""
-    b, s = _check_input(x)
-    if x.device.type == "cpu":
+    The CUDA kernel computes in bf16 only; a CPU tensor in f32 takes the
+    plain version. Eager bf16 calls run `fused_front_impl` on the re-laid
+    weights; under `torch.export` the call is the op `fvy::fused_front`."""
+    _check_input(x)
+    if x.device.type == "cpu" and compute_dtype != torch.bfloat16:
         return fused_front_plain(x, folded, compute_dtype=compute_dtype)
     if compute_dtype != torch.bfloat16:
         raise ValueError(f"fused_front: the CUDA kernel computes in bf16, not "
                          f"{compute_dtype}")
+    weights = front_kernel_weights(folded)
+    if kernels.direct_route():
+        return fused_front_impl(x, *weights)
+    return kernels.fvy_ops().fused_front(x, *weights)
+
+
+def fused_front_impl(x, w0, b0, w1, b1) -> torch.Tensor:
+    """The plain version for a CPU tensor, else the kernel (`fused_front_cuda`)."""
+    if x.device.type == "cpu":
+        return fused_front_plain(x, weights_to_folded(w0, b0, w1, b1))
+    return fused_front_cuda(x, w0, b0, w1, b1)
+
+
+def fused_front_cuda(x, w0, b0, w1, b1) -> torch.Tensor:
+    """Check the operands, then launch csrc/front_fused.cu on the current
+    stream; raises on anything the kernel does not take or a failed launch."""
+    b, s = _check_input(x)
+    weights = (w0, b0, w1, b1)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise TypeError(f"fused_front: x must be contiguous float32, got {x.dtype}")
-    weights = front_kernel_weights(folded)
     if any(t.device != x.device for t in weights):
         raise ValueError(f"fused_front: x on {x.device}, the folded conv_0/conv_1 "
                          "params elsewhere; all must be on one device")
@@ -115,8 +145,6 @@ def fused_front(x: torch.Tensor, folded: dict, *,
     out = torch.empty((b, s // 2, s // 2, C1), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
-    from face_vijnana_yolov3_tpu_torch import kernels
-
     lib = kernels.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

@@ -9,7 +9,8 @@ bitmask, then one warp scans it word by word; the mask lives in shared
 memory up to N = 1,024 and in a device-memory workspace above); a CPU
 tensor goes to `nms_sweep_reference`, the plain PyTorch version. There is
 no fallback between the two: a CUDA call that cannot build or launch raises.
-The threshold is rounded to f32 on every side (JAX and torch compare an f32
+The pair is also the custom op `fvy::nms_sweep` (ops/library.py). The
+threshold is rounded to f32 on every side (JAX and torch compare an f32
 tensor with a Python float in f32; the kernel takes a `float`).
 """
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from face_vijnana_yolov3_tpu_torch import kernels
 from face_vijnana_yolov3_tpu_torch.ops.boxes import pairwise_iou
 
 SMEM_MAX_N = 1024  # csrc/nms_sweep.cu: kSmemMaxN; larger N uses a workspace
@@ -61,10 +63,28 @@ def nms_sweep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
     """Suppression sweep over descending-score-sorted boxes.
 
     boxes_sorted (B, N, 4) f32, scores_sorted (B, N) f32 (0 = absent) →
-    (B, N) f32 suppressed scores in the same order.
+    (B, N) f32 suppressed scores in the same order. Eager calls run
+    `nms_sweep_impl`; under `torch.export` the call is the op
+    `fvy::nms_sweep`.
     """
+    if kernels.direct_route():
+        return nms_sweep_impl(boxes_sorted, scores_sorted, float(iou_th))
+    return kernels.fvy_ops().nms_sweep(boxes_sorted, scores_sorted, float(iou_th))
+
+
+def nms_sweep_impl(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
+                   iou_th: float) -> torch.Tensor:
+    """The plain version for CPU tensors, else the kernel (`nms_sweep_cuda`)."""
     if boxes_sorted.device.type == "cpu" and scores_sorted.device.type == "cpu":
         return nms_sweep_reference(boxes_sorted, scores_sorted, iou_th)
+    return nms_sweep_cuda(boxes_sorted, scores_sorted, iou_th)
+
+
+def nms_sweep_cuda(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
+                   iou_th: float) -> torch.Tensor:
+    """Check the operands, then launch csrc/nms_sweep.cu on the current
+    stream (in chunks of `workspace_chunk` images above N = SMEM_MAX_N);
+    raises on anything the kernel does not take or a failed launch."""
     if boxes_sorted.device.type != "cuda" or scores_sorted.device != boxes_sorted.device:
         raise ValueError(
             f"nms_sweep: boxes on {boxes_sorted.device} and scores on "
@@ -81,8 +101,6 @@ def nms_sweep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
         raise ValueError("nms_sweep: boxes must be 16-byte aligned (one float4 a box)")
     if b == 0 or n == 0:
         return scores_sorted.clone()
-    from face_vijnana_yolov3_tpu_torch import kernels
-
     lib = kernels.load()
     out = torch.empty_like(scores_sorted)
     chunk = workspace_chunk(b, n)

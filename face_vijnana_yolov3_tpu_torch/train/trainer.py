@@ -2,14 +2,27 @@
 
 Port of face_vijnana_yolov3_tpu/train/trainer.py (`_pad_batch`,
 `train_detector`, `finalize_bn_stats`, `_write_history`, and the triplet
-loop `train_identifier`, :294-551) for one card:
+loop `train_identifier`, :294-551):
 steps = ceil(N / batch) with the remainder in the last batch (padded with
 zero-weight rows), Keras Adam (train/optimizer.py), weighted MSE, BN moving
 statistics by the Keras momentum rule, then one momentum-0 pass that
 re-estimates them. The identifier trains on the triplet loss over one trunk
 pass of the stacked [anchor; positive; negative] batch (BN statistics over
-all 3B images), with random or in-batch semi-hard negatives. Multi-GPU data
-parallelism is ROADMAP.md queue 1 item 11; here `n_dev` is 1.
+all 3B images), with random or in-batch semi-hard negatives.
+
+Data and tensor parallelism (`mesh`, parallel/mesh.py): JAX runs one SPMD
+program over the GLOBAL batch; here each rank of the "data" axis runs its
+contiguous rows of every global batch (the padding of a remainder batch
+lands on the last ranks), and four collectives give the global program's
+numbers: the BN batch moments and the fake-quant maxabs over all ranks'
+rows (darknet.apply_graph_train), the loss as the global weighted sum over
+the global weight sum (each rank's share, summed), and the semi-hard pool
+gathered from all ranks in the global [a; p; n] order. Gradients are then
+summed over "data" (not averaged, as DDP would), and every rank runs the
+same Adam update. With model_axis > 1 each "model" rank keeps its rows of
+the identifier's dense1 kernel and their Adam moments
+(models/identifier.dense_l2norm); checkpoints and the returned params hold
+the whole kernel. mesh=None is one process with no collective.
 
 Precision: f32 trains with TF32 off for cuDNN and cuBLAS (the JAX f32
 contract is Precision.HIGHEST); compute_dtype=torch.bfloat16 is mixed
@@ -52,56 +65,111 @@ def _pad_batch(arrays: tuple, batch_size: int, n_dev: int = 1):
     return (*padded, weights)
 
 
+def _sum_over(tensors: list, group) -> list:
+    """The elementwise sums of same-dtype tensors over `group` (one
+    all-reduce of their flattened concatenation)."""
+    if group is None:
+        return tensors
+    import torch.distributed as dist
+
+    flat = torch._utils._flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=group)
+    return list(torch._utils._unflatten_dense_tensors(flat, tensors))
+
+
+def _apply_grads(params, opt_state, opt, keys, grads):
+    updates, opt_state = opt.update(dict(zip(keys, grads)), opt_state)
+    with torch.no_grad():
+        new_params = dict(zip(keys, torch._foreach_add(
+            [params[k].detach() for k in keys], [updates[k] for k in keys])))
+    return new_params, opt_state
+
+
+def detector_loss_grads(model, params, state, images, gts, weights, *,
+                        compute_dtype=torch.float32, fakequant: bool = False,
+                        group=None):
+    """(loss, grads, new_state) of one detector step: the weighted MSE
+    (per-image mean over the head, then the weighted batch mean; all-ones
+    weights give Keras 'mse') and its gradients by key. With a data-parallel
+    `group`, images/gts/weights are this rank's rows and loss and grads are
+    the global batch's (summed over the group)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    pred, new_state = model.apply_train(leaves, state, images, compute_dtype=compute_dtype,
+                                        fakequant=fakequant, group=group)
+    per = torch.mean(torch.square(pred - gts), dim=(1, 2, 3))
+    loss = torch.sum(per * weights) / _sum_over([torch.sum(weights)], group)[0]
+    keys = list(leaves)
+    grads = _sum_over(list(torch.autograd.grad(loss, [leaves[k] for k in keys])), group)
+    return _sum_over([loss.detach()], group)[0], dict(zip(keys, grads)), new_state
+
+
 def make_train_step(model, opt: KerasAdam, *, compute_dtype=torch.float32,
-                    fakequant: bool = False):
+                    fakequant: bool = False, group=None):
     """step(params, state, opt_state, images, gts, weights) → (params,
-    state, opt_state, loss): forward, weighted MSE (per-image mean over
-    the head, then the weighted batch mean; all-ones weights give Keras
-    'mse'), gradients, Keras Adam, p + u. params are leaf tensors; the
-    returned ones are new leaves."""
+    state, opt_state, loss): `detector_loss_grads`, Keras Adam, p + u.
+    params are leaf tensors; the returned ones are new leaves."""
 
     def step(params, state, opt_state, images, gts, weights):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        pred, new_state = model.apply_train(leaves, state, images,
-                                            compute_dtype=compute_dtype,
-                                            fakequant=fakequant)
-        per = torch.mean(torch.square(pred - gts), dim=(1, 2, 3))
-        loss = torch.sum(per * weights) / torch.sum(weights)
-        keys = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
-        updates, opt_state = opt.update(dict(zip(keys, grads)), opt_state)
-        with torch.no_grad():
-            new_params = dict(zip(keys, torch._foreach_add(
-                [params[k].detach() for k in keys], [updates[k] for k in keys])))
-        return new_params, new_state, opt_state, loss.detach()
+        loss, grads, new_state = detector_loss_grads(
+            model, params, state, images, gts, weights, compute_dtype=compute_dtype,
+            fakequant=fakequant, group=group)
+        keys = list(grads)
+        params, opt_state = _apply_grads(params, opt_state, opt, keys,
+                                         [grads[k] for k in keys])
+        return params, new_state, opt_state, loss
 
     return step
 
 
+def triplet_loss_grads(model, params, state, a, p, n, weights, sid_a=None, sid_n=None,
+                       *, compute_dtype=torch.float32, mining: str = "random",
+                       remat: bool | int = False, fakequant: bool = False, mesh=None):
+    """(loss, grads, new_state) of one triplet step (trainer.py:362-418):
+    one trunk pass over [a; p; n], the weighted triplet loss
+    (models/identifier.triplet_step_loss; semi_hard takes the subject
+    codes). With a mesh: this rank's rows over "data" (the semi-hard pool
+    gathered whole), and this "model" rank's dense1 rows; grads summed over
+    "data", keyed like `params` (dense1 sliced)."""
+    from face_vijnana_yolov3_tpu_torch.models.identifier import triplet_step_loss
+    from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
+
+    group = mesh_lib.axis_group(mesh, "data")
+    tp = None
+    if mesh is not None:
+        tp = (mesh_lib.axis_group(mesh, "model"),
+              mesh_lib.dense1_rows(mesh, model.flat_dim))
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    out, new_state = model.triplet_forward(leaves, state, a, p, n,
+                                           compute_dtype=compute_dtype, remat=remat,
+                                           fakequant=fakequant, group=group, tp=tp)
+    pool = None
+    if group is not None and mining == "semi_hard":
+        pool = (mesh_lib.all_gather_rows(out, group),
+                *(mesh_lib.all_gather_cat(t, group) for t in (weights, sid_a, sid_n)))
+    loss = triplet_step_loss(out, weights, model.dense1_dim, mining=mining,
+                             sid_a=sid_a, sid_n=sid_n, pool=pool,
+                             weight_sum=_sum_over([torch.sum(weights)], group)[0])
+    keys = list(leaves)
+    grads = _sum_over(list(torch.autograd.grad(loss, [leaves[k] for k in keys])), group)
+    return _sum_over([loss.detach()], group)[0], dict(zip(keys, grads)), new_state
+
+
 def make_triplet_step(model, opt: KerasAdam, *, compute_dtype=torch.float32,
                       mining: str = "random", remat: bool | int = False,
-                      fakequant: bool = False):
+                      fakequant: bool = False, mesh=None):
     """step(params, state, opt_state, a, p, n, weights[, sid_a, sid_n]) →
-    (params, state, opt_state, loss) for the identifier (trainer.py:362-418):
-    one trunk pass over [a; p; n], the weighted triplet loss
-    (models/identifier.triplet_step_loss; semi_hard takes the subject codes),
-    gradients, Keras Adam, p + u."""
-    from face_vijnana_yolov3_tpu_torch.models.identifier import triplet_step_loss
+    (params, state, opt_state, loss) for the identifier: `triplet_loss_grads`,
+    Keras Adam, p + u."""
 
     def step(params, state, opt_state, a, p, n, weights, sid_a=None, sid_n=None):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        out, new_state = model.triplet_forward(leaves, state, a, p, n,
-                                               compute_dtype=compute_dtype,
-                                               remat=remat, fakequant=fakequant)
-        loss = triplet_step_loss(out, weights, model.dense1_dim, mining=mining,
-                                 sid_a=sid_a, sid_n=sid_n)
-        keys = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
-        updates, opt_state = opt.update(dict(zip(keys, grads)), opt_state)
-        with torch.no_grad():
-            new_params = dict(zip(keys, torch._foreach_add(
-                [params[k].detach() for k in keys], [updates[k] for k in keys])))
-        return new_params, new_state, opt_state, loss.detach()
+        loss, grads, new_state = triplet_loss_grads(
+            model, params, state, a, p, n, weights, sid_a, sid_n,
+            compute_dtype=compute_dtype, mining=mining, remat=remat,
+            fakequant=fakequant, mesh=mesh)
+        keys = list(grads)
+        params, opt_state = _apply_grads(params, opt_state, opt, keys,
+                                         [grads[k] for k in keys])
+        return params, new_state, opt_state, loss
 
     return step
 
@@ -114,7 +182,7 @@ def _adam_to(opt_state, device):
 
 
 def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
-                   log_every: int = 1, checkpoint_path: str | None = None,
+                   mesh=None, log_every: int = 1, checkpoint_path: str | None = None,
                    init_opt_state=None, history_path: str | None = None,
                    finalize_bn: bool = True, compute_dtype=None,
                    checkpoint_every: int = 0, device_data: bool | None = None,
@@ -137,29 +205,44 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
     checkpoint_every: also save params, BN state and Adam state every N
     epochs (a killed run resumes through model_loading). Checkpoints are
     `.pt` with the trainmeta sidecar {"qat": fakequant}.
+
+    mesh: data parallelism over the mesh's "data" axis (module docstring):
+    every rank passes the same dataset, params and hps; rank 0's params,
+    state and Adam state are broadcast first, a remainder batch is padded
+    to a multiple of the mesh's ranks (JAX pads to its devices), and each
+    rank of the "data" axis trains on its rows.
+    Every rank returns the same params, state and global losses; only
+    global rank 0 writes the checkpoint and the history.
     """
     from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
 
     dtype = compute_dtype if compute_dtype is not None else torch.float32
     device = next(iter(params.values())).device
     batch_size = int(hps["batch_size"])
     steps = dataset.steps(batch_size)
     hps["step"] = steps  # the reference's runtime overwrite
+    # Padded to a multiple of the mesh's ranks, as JAX pads to its devices.
+    n_dev = 1 if mesh is None else mesh.size()
     opt = KerasAdam(hps["lr"], hps["beta_1"], hps["beta_2"], hps["decay"])
     opt_state = _adam_to(coerce_adam_state(init_opt_state) if init_opt_state is not None
                          else opt.init(params), device)
-    step = make_train_step(model, opt, compute_dtype=dtype, fakequant=fakequant)
+    params, state = mesh_lib.replicated((params, state), mesh)
+    opt_state = _adam_replicated(opt_state, mesh)
+    step = make_train_step(model, opt, compute_dtype=dtype, fakequant=fakequant,
+                           group=mesh_lib.axis_group(mesh, "data"))
     # The f32 contract: no TF32 in cuDNN convs or cuBLAS matmuls.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def make_batch(i):
-        images, gts, weights = _pad_batch(dataset.batch(i, batch_size), batch_size)
-        images = torch.from_numpy(images)
+        padded = _pad_batch(dataset.batch(i, batch_size), batch_size, n_dev)
+        images, gts, weights = (mesh_lib.batch_sharded(torch.from_numpy(a), mesh)
+                                for a in padded)
         if dtype == torch.bfloat16:
             # The forward casts to bf16 first anyway: half the upload bytes.
             images = images.to(torch.bfloat16)
-        return images, torch.from_numpy(gts), torch.from_numpy(weights)
+        return images.contiguous(), gts.contiguous(), weights.contiguous()
 
     if device_data is None:
         im0, gt0, _ = make_batch(0)
@@ -172,8 +255,9 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
         del stacked
 
     def save(path):
-        save_checkpoint(path, {**params, **state}, meta={"qat": bool(fakequant)},
-                        opt_state=adam_state_dict(opt_state))
+        if mesh_lib.is_main_process():
+            save_checkpoint(path, {**params, **state}, meta={"qat": bool(fakequant)},
+                            opt_state=adam_state_dict(opt_state))
 
     losses: list = []
     for epoch in range(int(hps["epochs"])):
@@ -196,14 +280,30 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
     losses = [float(v) for v in torch.stack(losses).cpu()] if losses else []
     _write_history(history_path, losses)
     if finalize_bn:
-        state = finalize_bn_stats(model, params, state, dataset, batch_size)
+        # Whole batches on every rank, as the JAX package's unsharded
+        # recalibration; rank 0's result is kept everywhere.
+        state = mesh_lib.replicated(
+            finalize_bn_stats(model, params, state, dataset, batch_size), mesh)
     if checkpoint_path:
         save(checkpoint_path)
     return params, state, losses
 
 
+def _adam_replicated(opt_state, mesh, shardings=None):
+    """Rank 0's Adam state on every rank, the moments cut to `shardings`
+    (parallel/mesh.put_tree); None and no mesh keep it as it is."""
+    from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
+
+    if mesh is None:
+        return opt_state
+    shardings = shardings or {}
+    return type(opt_state)(count=mesh_lib.replicated(opt_state.count, mesh),
+                           mu=mesh_lib.put_tree(opt_state.mu, shardings, mesh),
+                           nu=mesh_lib.put_tree(opt_state.nu, shardings, mesh))
+
+
 def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dict, *,
-                     checkpoint_path: str | None = None, init_opt_state=None,
+                     mesh=None, checkpoint_path: str | None = None, init_opt_state=None,
                      history_path: str | None = None, finalize_bn: bool = True,
                      compute_dtype=None, checkpoint_every: int = 0,
                      device_data: bool | None = None, mining: str = "random",
@@ -224,19 +324,32 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
     stacked a/p/n crops are 3x the image bytes). finalize_bn re-estimates
     the BN statistics over the stacked [a; p; n] batches. epoch_times, when
     given, receives each epoch's wall seconds.
+
+    mesh: data parallelism over "data" as in `train_detector`, and with
+    model_axis > 1 dense1's tensor parallelism over "model": this rank
+    keeps the kernel rows `mesh.dense1_rows` and their Adam moments. The
+    returned params and the checkpoints hold the whole kernel (gathered),
+    so a `.pt` written at any model_axis loads at 1.
     """
     from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
 
     dtype = compute_dtype if compute_dtype is not None else torch.float32
     device = next(iter(params.values())).device
     batch_size = int(hps["batch_size"])
     steps = triplet_dataset.steps(batch_size)
     hps["step"] = steps
+    # Padded to a multiple of the mesh's ranks, as JAX pads to its devices.
+    n_dev = 1 if mesh is None else mesh.size()
     opt = KerasAdam(hps["lr"], hps["beta_1"], hps["beta_2"], hps["decay"])
     opt_state = _adam_to(coerce_adam_state(init_opt_state) if init_opt_state is not None
                          else opt.init(params), device)
+    pspec = mesh_lib.shard_identifier_params(mesh, params) if mesh is not None else {}
+    params = mesh_lib.put_tree(params, pspec, mesh) if mesh is not None else params
+    state = mesh_lib.replicated(state, mesh)
+    opt_state = _adam_replicated(opt_state, mesh, pspec)
     step = make_triplet_step(model, opt, compute_dtype=dtype, mining=mining,
-                             remat=remat, fakequant=fakequant)
+                             remat=remat, fakequant=fakequant, mesh=mesh)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     semi = mining == "semi_hard"
@@ -245,15 +358,16 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
         arrays = triplet_dataset.batch(i, batch_size)
         if semi:
             sa, sn = triplet_dataset.batch_subject_codes(i, batch_size)
-            *apn, sa, sn, w = _pad_batch((*arrays, sa, sn), batch_size)
+            *apn, sa, sn, w = _pad_batch((*arrays, sa, sn), batch_size, n_dev)
         else:
-            *apn, w = _pad_batch(arrays, batch_size)
-        apn = [torch.from_numpy(x) for x in apn]
+            *apn, w = _pad_batch(arrays, batch_size, n_dev)
+        rows = lambda x: mesh_lib.batch_sharded(torch.from_numpy(x), mesh).contiguous()  # noqa: E731
+        apn = [rows(x) for x in apn]
         if dtype == torch.bfloat16:
             apn = [x.to(torch.bfloat16) for x in apn]
-        feeds = (*apn, torch.from_numpy(w))
+        feeds = (*apn, rows(w))
         if semi:
-            feeds += (torch.from_numpy(sa), torch.from_numpy(sn))
+            feeds += (rows(sa), rows(sn))
         return feeds
 
     if device_data is None:
@@ -266,9 +380,19 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
                 for j in range(len(stacked[0]))]
         del stacked
 
+    def whole():
+        """params and Adam state with dense1's kernel gathered whole."""
+        if mesh is None:
+            return params, opt_state
+        return (mesh_lib.gather_tree(params, pspec, mesh), type(opt_state)(
+            count=opt_state.count, mu=mesh_lib.gather_tree(opt_state.mu, pspec, mesh),
+            nu=mesh_lib.gather_tree(opt_state.nu, pspec, mesh)))
+
     def save(path):
-        save_checkpoint(path, {**params, **state}, meta={"qat": bool(fakequant)},
-                        opt_state=adam_state_dict(opt_state))
+        full, full_opt = whole()  # a collective: every rank takes part
+        if mesh_lib.is_main_process():
+            save_checkpoint(path, {**full, **state}, meta={"qat": bool(fakequant)},
+                            opt_state=adam_state_dict(full_opt))
 
     losses: list = []
     for epoch in range(int(hps["epochs"])):
@@ -291,6 +415,8 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
 
     losses = [float(v) for v in torch.stack(losses).cpu()] if losses else []
     _write_history(history_path, losses)
+    params, opt_state = whole()
+    pspec = {}  # whole from here on: `whole` and `save` gather nothing more
     if finalize_bn:
 
         class _Stacked:
@@ -302,7 +428,8 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
             def batch(self, i, bs):
                 return (np.concatenate(triplet_dataset.batch(i, bs)),)
 
-        state = finalize_bn_stats(model, params, state, _Stacked(), batch_size)
+        state = mesh_lib.replicated(
+            finalize_bn_stats(model, params, state, _Stacked(), batch_size), mesh)
     if checkpoint_path:
         save(checkpoint_path)
     return params, state, losses
@@ -332,8 +459,11 @@ def finalize_bn_stats(model, params: dict, state: dict, dataset, batch_size: int
 
 
 def _write_history(history_path, losses):
-    """One JSON line {"step": i, "loss": loss} a step (trainer.py:269-277)."""
-    if not history_path:
+    """One JSON line {"step": i, "loss": loss} a step (trainer.py:269-277),
+    written by global rank 0 only."""
+    from face_vijnana_yolov3_tpu_torch.parallel.mesh import is_main_process
+
+    if not history_path or not is_main_process():
         return
     with open(history_path, "w") as f:
         for i, loss in enumerate(losses):

@@ -368,14 +368,22 @@ def test_cli_modes_on_the_cpu(fi, tmp_path, monkeypatch):
 
 
 def test_refused_options_cite_the_roadmap(fi, tmp_path, monkeypatch):
-    """The refused options name their ROADMAP item; the reconstruction
+    """The refused option names its ROADMAP entry; the reconstruction
     decoder, refused until it was ported, now runs (its parity with the JAX
-    package is tests/test_torch_recon.py)."""
+    package is tests/test_torch_recon.py); model_axis > 1, refused until
+    dense1 tensor parallelism was ported, builds, and its mesh asks for
+    model_axis ranks as JAX's make_mesh asks for devices (the 2-rank run is
+    tests/test_torch_multiprocess.py)."""
+    from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
+
     root = fi["root"]
-    for kw, item in (({"bf16_front_mode": "int8"}, "should not carry"),
-                     ({"model_axis": 2}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="should not carry"):
+        port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv", bf16_front_mode="int8"),
+                                       device="cpu")
+    tp = port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv", model_axis=2),
+                                        device="cpu")
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
+        mesh_lib.default_mesh(int(tp.conf.model_axis))
     monkeypatch.chdir(tmp_path)  # the decoder's checkpoint lands here
     assert fi["pfi"].reconstruct(np.full((1, D), 0.5, np.float32)).shape == (1, S, S, 3)
     if not torch.cuda.is_available():

@@ -7,9 +7,12 @@ the int8 convs and the fused residual blocks), the fused-front trunk
 (ops/front_fused.py) and one fake-quant training step, embed with a small
 identifier at f32, bf16 and int8, crop ROIs on the device path and match
 them against a registry, run the full YOLOv3 at int8 through the COCO
-postprocess and the reconstruction decoder, import the training, dataset,
-Keras-h5, native-loader, mAP, subject-DB, identification, COCO demo, box
-selection and profiling modules, then assert that neither `jax`
+postprocess and the reconstruction decoder, export the int8 detector
+through the `fvy::` custom ops and load it back, serve it with
+`detect_quant_dp` and the f32 head with `detect_spatial` (one process),
+import the training, dataset, Keras-h5, native-loader, mAP, subject-DB,
+identification, COCO demo, box selection, profiling, export CLI and mesh
+modules, then assert that neither `jax`
 nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
 every source of the package and chip_smoke.py: no import of either, and no
 allow-list.
@@ -55,6 +58,12 @@ from face_vijnana_yolov3_tpu_torch.convert import params_from_jax
 from face_vijnana_yolov3_tpu_torch.models import darknet, recon
 from face_vijnana_yolov3_tpu_torch.ops.postprocess import coco_postprocess
 from face_vijnana_yolov3_tpu_torch.utils import box_select, profiling
+from face_vijnana_yolov3_tpu_torch.ops import library
+from face_vijnana_yolov3_tpu_torch.core import export as fvy_export
+from face_vijnana_yolov3_tpu_torch.api import export_cli
+from face_vijnana_yolov3_tpu_torch.parallel import mesh, serving, spatial
+import os.path
+import tempfile
 
 conf = FdConf(weights_path="does_not_exist.weights")
 conf.nn_arch.image_size = 64
@@ -64,6 +73,13 @@ for precision in ("float32", "bfloat16", "int8"):
     fd = FaceDetectorPipeline(conf, precision=precision, device="cpu")
     cands, counts = fd.detect_batch(x)
     assert cands.shape == (2, 4, 6) and counts.shape == (2,), (cands.shape, counts.shape)
+with tempfile.TemporaryDirectory() as d:
+    fvy_export.export_detector(fd, os.path.join(d, "int8.fvyx"))
+    got, _ = fvy_export.load_artifact(os.path.join(d, "int8.fvyx"))(x)
+    assert np.array_equal(got.numpy(), cands)
+head = serving.detect_quant_dp(fd.model, None, fd._qparams, fused_blocks=True)(x)
+sp = spatial.detect_spatial(fd.model, None, compute_dtype=torch.float32)(fd.model.fold(), x)
+assert head.shape == sp.shape == (2, 2, 2, 6), (head.shape, sp.shape)
 trunk = apply_graph_folded_front(fd.model.fold(), torch.from_numpy(x), fd.model.ops)
 assert trunk["trunk"].shape == (2, 2, 2, 1024), trunk["trunk"].shape
 params, state = split_state_dict(fd.model.state_dict())
