@@ -103,6 +103,23 @@ which raises on failure (exit code != 0):
               detect_coco ms per image at each precision on a
               device-resident input, its kernel launches per int8 image
               (35 A0, 20 A, 1 B), B at (80, 256) and reconstruct ms.
+13. deploy  — scale-out and deploy at world size 1 over NCCL and the
+              exported artifacts in a fresh process (DEPLOY_*;
+              `launches_deploy`), the export CLI, the two routes timed;
+14. release — the release loop through its tools (RELEASE_*): recipe v3
+              at 416² on a seeded 160/40 set (plain epochs at 1e-3, then a
+              fake-quant finetune --init-from them at 1e-4; epochs reached,
+              the sidecar's qat flag, the loss falling in each phase),
+              select_serving_tail over tails (0, 3) (the pin written equals
+              the one returned, A0 and B launch in its AP passes),
+              release_ap (f32, bf16 with the probed guard, int8 at the pin,
+              which a fresh int8 pipeline must serve; AP50 with bootstrap
+              95 % intervals, not gated), the pinned int8 served with the
+              fused blocks on and off (equal CSVs, A launches),
+              int8_error_profile at the pin (one finite, non-negative row
+              per int8 conv), synthetic_fi_e2e (the triplet loss falling;
+              top-1 and VAL/FAR printed): the main path, whose launch
+              counts go to `launches_release` (B, A0 and A must move).
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -273,6 +290,18 @@ DEPLOY_BATCHES = (1, 3, 32)
 DEPLOY_TIMING = (("int8", 32), ("float32", 8))
 ROUTE_REPS = 10
 DEPLOY_TRAIN_LR = 1e-4
+# [release]: recipe v3 at full width and reduced scale (a seeded set of
+# RELEASE_TRAIN/RELEASE_VAL 416² JPEGs, RELEASE_PLAIN plain epochs then
+# RELEASE_FT fake-quant epochs at 1e-4), the tail pinned over RELEASE_TAILS,
+# held-out APs with a bootstrap over RELEASE_RESAMPLES draws of the val
+# images, int8_error_profile on RELEASE_PROFILE_IMAGES val images, and the
+# FI loop at RELEASE_FI_SUBJECTS subjects for RELEASE_FI_EPOCHS epochs.
+RELEASE_TRAIN, RELEASE_VAL = 160, 40
+RELEASE_PLAIN, RELEASE_FT = 12, 4
+RELEASE_TAILS = (0, 3)
+RELEASE_RESAMPLES = 200
+RELEASE_PROFILE_IMAGES = 8
+RELEASE_FI_SUBJECTS, RELEASE_FI_EPOCHS = 6, 4
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
@@ -2422,6 +2451,179 @@ def deploy_phase(tmp, card, dev, rng, coco_detect8):
 
 
 
+def _epoch_means(losses: list[float], epochs: int) -> tuple[float, float]:
+    """Mean loss of the first and of the last epoch of a run's step losses."""
+    steps = len(losses) // epochs
+    return float(np.mean(losses[:steps])), float(np.mean(losses[-steps:]))
+
+
+def release_phase(tmp, card, dev):
+    """The release loop through its tools (scripts/), at 416² on reduced
+    data (RELEASE_*): train_qat_recipe plain then --init-from fake-quant
+    (epochs reached, the sidecar's qat flag, the loss falling in each
+    phase), select_serving_tail over RELEASE_TAILS (the pin written equals
+    the tail returned; A0 and B launch in its AP passes), release_ap (f32,
+    bf16 with the probed guard, int8 at the pin, which a fresh int8 pipeline
+    must report), the pinned int8 served with the fused blocks on and off
+    (equal CSVs, A launches), int8_error_profile at the pin (one finite,
+    non-negative row per int8 conv), and synthetic_fi_e2e (the triplet loss
+    falling). Returns (the launches over the phase, its numbers)."""
+    from face_vijnana_yolov3_tpu_torch.api.config import FdConf
+    from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipeline
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import load_train_meta
+    from face_vijnana_yolov3_tpu_torch.data.synthetic import make_dataset
+    from face_vijnana_yolov3_tpu_torch.models import quant
+    from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_int8
+    from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8
+    from face_vijnana_yolov3_tpu_torch.ops.front_fused import fused_front
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+    from face_vijnana_yolov3_tpu_torch.scripts import (
+        release_ap,
+        select_serving_tail,
+        synthetic_fi_e2e,
+        train_qat_recipe,
+    )
+    from face_vijnana_yolov3_tpu_torch.scripts.synthetic_e2e import make_valset
+
+    kernels = {"nms_sweep": nms_sweep, "conv_int8": conv_int8, "block_int8": block_int8,
+               "fused_front": fused_front}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in kernels.items()}
+
+    work = os.path.join(tmp, "release")
+    t0 = time.perf_counter()
+    make_dataset(work, n_train=RELEASE_TRAIN, n_val=RELEASE_VAL, seed=SEED)
+    valdir = make_valset(work)
+    data_s = time.perf_counter() - t0
+    rec = {"data_s": data_s}
+    for f in kernels.values():
+        f.launches = 0
+
+    # Recipe v3 at reduced scale: plain, then the fake-quant finetune.
+    t0 = time.perf_counter()
+    meta_p, losses_p = train_qat_recipe.main([work, str(RELEASE_PLAIN), "--plain"])
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta_q, losses_q = train_qat_recipe.main(
+        [work, str(RELEASE_FT), "--init-from", "fd_ckpt_plain", "--lr", "1e-4"])
+    t_ft = time.perf_counter() - t0
+    ckpt = os.path.join(work, "fd_ckpt_qat.pt")
+    falls = {"plain": _epoch_means(losses_p, RELEASE_PLAIN),
+             "fakequant": _epoch_means(losses_q, RELEASE_FT)}
+    side = load_train_meta(ckpt)
+    print(f"[release] recipe v3 at {IMAGE_SIZE}², {RELEASE_TRAIN} train / {RELEASE_VAL} "
+          f"val images, batch 16, on {card}: {RELEASE_PLAIN} plain epochs at 1e-3 "
+          f"({t_plain:.1f} s, meta {meta_p}), then {RELEASE_FT} fake-quant epochs at "
+          f"1e-4 --init-from fd_ckpt_plain ({t_ft:.1f} s, meta {meta_q}); first -> last "
+          f"epoch mean loss: plain {falls['plain'][0]:.5f} -> {falls['plain'][1]:.5f}, "
+          f"fake-quant {falls['fakequant'][0]:.5f} -> {falls['fakequant'][1]:.5f}; "
+          f"sidecar {side}; dataset {data_s:.1f} s")
+    if meta_p["epochs_done"] != RELEASE_PLAIN or meta_q["epochs_done"] != RELEASE_FT:
+        raise AssertionError("[release] the recipe's meta missed its epochs")
+    if side.get("qat") is not True or meta_q.get("recipe_ver") != 3:
+        raise AssertionError("[release] the finetuned checkpoint is not marked QAT "
+                             "recipe v3")
+    if any(last >= first for first, last in falls.values()):
+        raise AssertionError(f"[release] a recipe phase's loss did not fall: {falls}")
+    rec.update(plain_s=t_plain, ft_s=t_ft, sec_per_epoch_plain=meta_p["sec_per_epoch"],
+               sec_per_epoch_ft=meta_q["sec_per_epoch"], loss=falls)
+
+    # Select and pin the int8 tail on the finished artifact.
+    before = counts()
+    t0 = time.perf_counter()
+    tail, table = select_serving_tail.main(
+        [work, "fd_ckpt_qat", "--tails", ",".join(map(str, RELEASE_TAILS))])
+    select_s = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in counts().items()}
+    pin = load_train_meta(ckpt).get("int8_tail")
+    print(f"[release] select_serving_tail over tails {RELEASE_TAILS} on {card}: "
+          f"table {table}, pinned {pin} ({select_s:.1f} s); launches in its AP passes "
+          f"{moved}")
+    if pin != tail:
+        raise AssertionError(f"[release] pinned {pin}, selected {tail}")
+    if moved["conv_int8"] == 0 or moved["nms_sweep"] == 0:
+        raise AssertionError(f"[release] the AP passes skipped a kernel: {moved}")
+    rec.update(tail=tail, table=table, select_s=select_s)
+
+    # Held-out APs as served: f32, bf16 (probed guard), int8 (the pin).
+    aps = release_ap.main([work, "fd_ckpt_qat", "--resamples", str(RELEASE_RESAMPLES)])
+    if aps["int8"]["int8_tail"] != pin:
+        raise AssertionError(f"[release] a fresh int8 pipeline served tail "
+                             f"{aps['int8']['int8_tail']}, the pin is {pin}")
+    rec["aps"] = aps
+
+    # The pinned int8 configuration with the fused blocks on and off.
+    csvs, pipes = {}, {}
+    for blocks in (True, False):
+        conf = FdConf(test_path=valdir, model_loading=True, model_path=ckpt,
+                      output_file_path=os.path.join(work, f"pinned_blocks_{blocks}.csv"),
+                      int8_pallas_blocks=blocks)
+        conf.nn_arch.image_size = IMAGE_SIZE
+        a0 = counts()
+        pipes[blocks] = FaceDetectorPipeline(conf, precision="int8")
+        pipes[blocks].test()
+        moved = {k: v - a0[k] for k, v in counts().items()}
+        csvs[blocks] = open(conf.output_file_path).read()
+        print(f"[release] pinned int8 (tail {pipes[blocks].int8_tail_chosen}) test mode "
+              f"on the {RELEASE_VAL} val images, fused blocks {'on' if blocks else 'off'}: "
+              f"{csvs[blocks].count(chr(10))} rows at face_conf_th "
+              f"{conf.hps.face_conf_th}; launches {moved}")
+        if blocks and moved["block_int8"] == 0:
+            raise AssertionError("[release] the blocks-on run never launched block_int8")
+    if csvs[True] != csvs[False]:
+        raise AssertionError("[release] the pinned int8 CSVs differ with the blocks on "
+                             "and off")
+
+    # int8_error_profile of the trained checkpoint at the pin.
+    fd = pipes[False]
+    files = sorted(f for f in os.listdir(valdir) if f.endswith(".jpg"))
+    x = torch.from_numpy(np.asarray(
+        [letterbox_host(imread(os.path.join(valdir, f)) / 255, IMAGE_SIZE, "cubic")[0]
+         for f in files[:RELEASE_PROFILE_IMAGES]], np.float32)).to(dev)
+    t0 = time.perf_counter()
+    prof = quant.int8_error_profile(fd._qparams, fd.model.fold(), x, fd.model.ops)
+    profile_s = time.perf_counter() - t0
+    n_ops = fd._qparams.get("tail_start")
+    n_ops = len(fd.model.ops) if n_ops is None else n_ops
+    want = [op[1] for op in fd.model.ops[:n_ops] if op[0] == "conv"]
+    worst = sorted(prof.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[release] int8_error_profile at tail {pin} on {len(x)} val images "
+          f"({profile_s:.1f} s on {card}): {len(prof)} rows for {len(want)} int8 convs; "
+          f"worst three {[(k, round(v, 5)) for k, v in worst]}; conv_0 "
+          f"{prof.get(want[0], float('nan')):.5f}")
+    if list(prof) != want or not all(np.isfinite(v) and v >= 0 for v in prof.values()):
+        raise AssertionError("[release] int8_error_profile: not one finite, non-negative "
+                             "row per int8 conv")
+    rec.update(profile_worst=worst, profile_s=profile_s)
+    del pipes, fd, x
+    torch.cuda.empty_cache()
+
+    # The FI loop at full width.
+    t0 = time.perf_counter()
+    fi = synthetic_fi_e2e.main([os.path.join(tmp, "release_fi"), str(RELEASE_FI_EPOCHS),
+                                str(RELEASE_FI_SUBJECTS)])
+    fi_s = time.perf_counter() - t0
+    first, last = _epoch_means(fi["losses"], RELEASE_FI_EPOCHS)
+    ths, vals, fars = fi["val_far"]
+    k = int(np.argmin(np.abs(np.asarray(ths) - 0.5)))
+    print(f"[release] synthetic_fi_e2e, {RELEASE_FI_SUBJECTS} subjects, "
+          f"{RELEASE_FI_EPOCHS} bf16 epochs at {IMAGE_SIZE}² on {card} ({fi_s:.1f} s): "
+          f"triplet loss first -> last epoch mean {first:.5f} -> {last:.5f}; held-out "
+          f"top-1 untrained {fi['top1_untrained']:.3f}, trained {fi['top1']:.3f}; "
+          f"VAL {vals[k]:.3f} FAR {fars[k]:.3f} at sim_th {ths[k]:.1f} (not gated)")
+    if last >= first:
+        raise AssertionError("[release] the triplet loss did not fall")
+    rec.update(fi_s=fi_s, fi_loss=(first, last), top1=(fi["top1_untrained"], fi["top1"]),
+               val_far_05=(float(vals[k]), float(fars[k])))
+    launches = counts()
+    if min(launches[k] for k in ("nms_sweep", "conv_int8", "block_int8")) == 0:
+        raise AssertionError(f"[release] the phase skipped a kernel: {launches}")
+    return launches, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -2705,7 +2907,12 @@ def main() -> int:
         deploy_launches, deploy_rates = deploy_phase(tmp, card, dev, rng, coco_detect8)
         del coco_detect8
         print(f"[deploy] done at {time.perf_counter() - t_start:.0f} s (phase "
-              f"{time.perf_counter() - t_deploy:.0f} s); total run "
+              f"{time.perf_counter() - t_deploy:.0f} s)")
+        torch.cuda.empty_cache()
+        t_release = time.perf_counter()
+        release_launches, release_rates = release_phase(tmp, card, dev)
+        print(f"[release] done at {time.perf_counter() - t_start:.0f} s (phase "
+              f"{time.perf_counter() - t_release:.0f} s); total run "
               f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
@@ -2724,6 +2931,7 @@ def main() -> int:
         "launches_identify": fi_launches["nms_sweep"],
         "launches_coco": coco_launches["nms_sweep"],
         "launches_deploy": deploy_launches["nms_sweep"],
+        "launches_release": release_launches["nms_sweep"],
         "events_ms": nms["events_ms"],
         "ms_coco_80x256": coco_rates["nms_ms_80x256"],
         "plain_ms_coco_80x256": coco_rates["nms_plain_ms_80x256"],
@@ -2751,6 +2959,7 @@ def main() -> int:
             "launches_identify": fi_launches[name],
             "launches_coco": coco_launches[name],
             "launches_deploy": deploy_launches.get(name, 0),
+            "launches_release": release_launches[name],
         })
         if name == "fused_front":
             kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
@@ -2765,6 +2974,7 @@ def main() -> int:
     print(json.dumps({"identify": fi_rates, "identify_launches": fi_launches}))
     print(json.dumps({"coco": coco_rates, "coco_launches": coco_launches}))
     print(json.dumps({"deploy": deploy_rates, "deploy_launches": deploy_launches}))
+    print(json.dumps({"release": release_rates, "release_launches": release_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

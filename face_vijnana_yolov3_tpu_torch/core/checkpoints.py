@@ -76,6 +76,12 @@ def load_opt_state(path: str) -> dict | None:
     return _load_pt(path).get("opt_state")
 
 
+def checkpoint_exists(path: str) -> bool:
+    """Whether `save_checkpoint` has written `path` (checkpoints.py:85 tests
+    for the JAX package's Orbax directory; here it is the `.pt` file)."""
+    return path.endswith(".pt") and os.path.isfile(path)
+
+
 def update_train_meta(path: str, **kv) -> dict:
     """Merge keys into a checkpoint's trainmeta sidecar; returns the result."""
     meta = load_train_meta(path)

@@ -251,19 +251,29 @@ def make_facial_ids_db(
     (B, D) numpy."""
     import h5py
 
+    with h5py.File(out_h5, "w") as f:
+        for subject_id, ff, emb in facial_ids(embed_fn, raw_data_path, db_csv,
+                                              faces_subdir, batch_size):
+            f[ff] = emb
+            f[ff].attrs["subject_id"] = subject_id
+
+
+def facial_ids(embed_fn, raw_data_path: str, db_csv: str = "subject_image_db.csv",
+               faces_subdir: str = "subject_faces", batch_size: int = 32):
+    """What `make_facial_ids_db` writes, in memory: (subject_id, face_file,
+    embedding) for every known subject's crop, in the db's order."""
     db = pd.read_csv(db_csv)
     db = db.iloc[:, 1:]
     groups = db.groupby("subject_id")
-    with h5py.File(out_h5, "w") as f:
-        for subject_id in groups.groups.keys():
-            if subject_id == -1:
-                continue
-            files = list(groups.get_group(subject_id).iloc[:, 1])
-            embs = _subject_embeddings(embed_fn, raw_data_path, faces_subdir, files,
-                                       batch_size)
-            for k, ff in enumerate(files):
-                f[ff] = embs[k]
-                f[ff].attrs["subject_id"] = subject_id
+    out = []
+    for subject_id in groups.groups.keys():
+        if subject_id == -1:
+            continue
+        files = list(groups.get_group(subject_id).iloc[:, 1])
+        embs = _subject_embeddings(embed_fn, raw_data_path, faces_subdir, files,
+                                   batch_size)
+        out.extend((subject_id, ff, embs[k]) for k, ff in enumerate(files))
+    return out
 
 
 def register_facial_ids(

@@ -2,7 +2,9 @@
 
 A copy of face_vijnana_yolov3_tpu/evals/detection.py (the port imports
 nothing of the JAX package); tests/test_torch_evals.py holds it to the
-original, source and results.
+original, source and results. One change: the per-image matching is its
+own function, `match_images` (a bootstrap over images needs it), and
+`match_solution` concatenates its images.
 
 Reproduces the reference's cal_mAP_fd (reference src/space/evaluate.py:27-127)
 semantics exactly:
@@ -68,20 +70,23 @@ def _greedy_assign(ious: np.ndarray) -> dict[int, float]:
     return out
 
 
-def match_solution(gt_path: str, sol_path: str):
-    """Run the per-image greedy matching once; returns (scores, ious, gt_count).
+def match_images(gt_path: str, sol_path: str):
+    """Run the per-image greedy matching once, image by image; returns
+    (matches, gt_counts).
 
-    `scores`/`ious` are the pooled solution rows' confidences and assigned IoUs
-    (-1 when unassigned), in the reference's accumulation order. Splitting the
-    matching from the threshold sweep lets the IoU-threshold loop
-    (0.50:0.05:0.95) reuse one matching pass — the assignment is threshold-free
-    in the reference too.
+    For each GT image, in the reference's order, `matches` holds (scores,
+    ious): that image's solution rows' confidences and assigned IoUs (-1
+    when unassigned), or two empty arrays where the image adds nothing to
+    the P-R pool (no solution rows, or no pair with a positive IoU: the
+    reference's quirk). `gt_counts` holds each image's GT face count.
+    Keeping the images apart lets a bootstrap resample them.
     """
     try:
         sol_df = pd.read_csv(sol_path, header=None)
     except pd.errors.EmptyDataError:
         # An undertrained/over-thresholded run writes zero rows; surface the
-        # same clear no-pairs error as below instead of a raw pandas crash.
+        # same clear no-pairs error as match_solution instead of a raw
+        # pandas crash.
         raise ValueError(
             f"solution file {sol_path!r} is empty — no detections to score "
             "(the reference would crash here)"
@@ -90,13 +95,16 @@ def match_solution(gt_path: str, sol_path: str):
     sol_groups = sol_df.groupby(0)
     gt_groups = gt_df.groupby("FILE")
 
-    scores: list[np.ndarray] = []
-    ious: list[np.ndarray] = []
+    matches: list[tuple[np.ndarray, np.ndarray]] = []
+    gt_counts: list[int] = []
+    nothing = (np.zeros(0), np.zeros(0))
     for image_id in list(gt_groups.groups.keys()):
         df = gt_groups.get_group(image_id)
+        gt_counts.append(df.shape[0])
         try:
             rel = sol_groups.get_group(image_id)
         except KeyError:
+            matches.append(nothing)
             continue
         gt_boxes = np.stack(
             [
@@ -120,19 +128,33 @@ def match_solution(gt_path: str, sol_path: str):
         pair_ious = np.nan_to_num(pair_ious, nan=0.0, posinf=0.0, neginf=0.0)
         assigned = _greedy_assign(pair_ious)
         if not assigned:
-            continue  # reference quirk: image contributes nothing at all (:77)
+            matches.append(nothing)  # reference quirk: image contributes nothing at all (:77)
+            continue
         row_ious = np.full(rel.shape[0], -1.0)
         for j, v in assigned.items():
             row_ious[j] = v
-        scores.append(rel.iloc[:, 5].to_numpy(float))
-        ious.append(row_ious)
+        matches.append((rel.iloc[:, 5].to_numpy(float), row_ious))
+    return matches, np.asarray(gt_counts)
 
-    if not scores:
+
+def match_solution(gt_path: str, sol_path: str):
+    """Run the per-image greedy matching once; returns (scores, ious, gt_count).
+
+    `scores`/`ious` are the pooled solution rows' confidences and assigned IoUs
+    (-1 when unassigned), in the reference's accumulation order: the images
+    of `match_images`, concatenated. Splitting the matching from the
+    threshold sweep lets the IoU-threshold loop (0.50:0.05:0.95) reuse one
+    matching pass — the assignment is threshold-free in the reference too.
+    """
+    matches, gt_counts = match_images(gt_path, sol_path)
+    if not any(s.size for s, _ in matches):
         raise ValueError(
             "no GT/solution pairs with positive IoU — nothing to score "
             "(the reference would crash here)"
         )
-    return np.concatenate(scores), np.concatenate(ious), gt_df.shape[0]
+    scores = np.concatenate([s for s, _ in matches])
+    ious = np.concatenate([i for _, i in matches])
+    return scores, ious, int(gt_counts.sum())
 
 
 def pr_curve(scores: np.ndarray, ious: np.ndarray, gt_count: int, iou_th: float):

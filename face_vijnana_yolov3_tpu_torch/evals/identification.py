@@ -6,9 +6,15 @@ A copy of face_vijnana_yolov3_tpu/evals/identification.py:15-210
 src/space/evaluate.py:129-329, with the JAX package's one fix: the
 reference writes the python builtin `vars` into val_far.h5 (`f['vals'] =
 vars`, evaluate.py:220 — a crash); here the computed VAL array is written.
+The port's one addition: `cal_face_pairs_dists` (and so `cal_VAL_FAR`)
+also reads the embeddings from a mapping in memory, for a machine without
+h5py.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import pandas as pd
@@ -20,8 +26,16 @@ def cal_face_pairs_dists(
     out_h5: str | None = "face_pairs_dists.h5",
     rng: np.random.Generator | None = None,
 ):
-    """Same/different-subject embedding L2 distances (evaluate.py:129-194)."""
-    import h5py
+    """Same/different-subject embedding L2 distances (evaluate.py:129-194).
+
+    `ids_h5` is the ids h5 file's path, or a mapping of face file name to
+    embedding that stands for it (`data/facedb.facial_ids` in memory)."""
+    if isinstance(ids_h5, (str, os.PathLike)):
+        import h5py
+
+        ids = h5py.File(ids_h5, "r")
+    else:
+        ids = contextlib.nullcontext(ids_h5)
 
     db = pd.read_csv(db_csv)
     db = db.iloc[:, 1:]
@@ -30,7 +44,7 @@ def cal_face_pairs_dists(
     diff_dists: list[float] = []
     rng = rng or np.random.default_rng()
 
-    with h5py.File(ids_h5, "r") as f:
+    with ids as f:
         subject_ids = list(db_g.groups.keys())
 
         for subject_id in subject_ids:

@@ -23,7 +23,9 @@ vectors the walk uses; `apply_graph_quant` calls it.
 Calibration takes exact maxabs, a percentile, "auto" or the "msegrid"
 grid search (`calibrate_folded_msegrid`); `quantize_folded(bias_correct=True)`
 folds the measured mean quantization error into the biases
-(`bias_correct_quant`). Distillation QAT (the JAX package's
+(`bias_correct_quant`); `int8_error_profile` measures each int8 conv's
+error against the f32 twin, to name the convs worth a bf16 island.
+Distillation QAT (the JAX package's
 models/qat.distill_folded, `int8_qat_steps`) is not carried: it measured
 below every PTQ row (ROADMAP.md, "code the port should not carry").
 """
@@ -372,6 +374,93 @@ def bias_correct_quant(qparams: dict, folded: dict, x_calib, ops: list[tuple]) -
         raise AssertionError(f"bias correction measured {flat.size} channels, "
                              f"the walk has {off}")
     return out
+
+
+@torch.no_grad()
+def int8_error_profile(qparams: dict, folded: dict, x, ops: list[tuple]) -> dict[int, float]:
+    """Per-conv relative error of the int8 walk vs the f32 folded twin
+    (quant.py:529-640): the damage localiser behind bf16 islands (bf16_ops).
+
+    One walk of the deployed int8 program beside the f32 folded forward, as
+    `bias_correct_quant`'s, records at every int8 conv the post-epilogue
+    (pre-requant) relative error ||y_q - y_f|| / ||y_f|| over batch, space
+    and channels. The post-epilogue values come from `conv_acc_reference`'s
+    exact sums (the kernels never write them out); the next layer's int8
+    input is their requantization, which is what serving's `conv_int8`
+    writes (its epilogue is `requant_reference`'s, bit for bit), so the walk
+    launches no kernel. With a bf16 tail the walk stops at the cut (a tail_start of 0
+    profiles nothing); bf16-island convs run their folded f32 conv on the
+    dequantized input and get no row. Returns {conv_idx: rel_err} in op
+    order.
+    """
+    tail_start = qparams.get("tail_start")
+    n_ops = len(ops) if tail_start is None else tail_start
+    island = {op[1] for op in ops[:n_ops]
+              if op[0] == "conv" and f"conv_{op[1]}" not in qparams}
+    if not any(op[0] == "conv" and op[1] not in island for op in ops[:n_ops]):
+        return {}
+    x = torch.as_tensor(x, dtype=torch.float32)
+    qp = to_device(qparams, x.device)
+    scale, inv = qp["act_scales_f32"], qp["act_inv_f32"]
+    errs: dict[int, torch.Tensor] = {}
+    h_f = x
+    h_q, s = quantize(h_f, inv[0]), 0
+    saved: dict[str, tuple] = {}
+    skip_add = False
+    with darknet.exact_f32():
+        for i, op in enumerate(ops[:n_ops]):
+            kind = op[0]
+            out_pos = i + 1
+            if skip_add:  # consumed by the previous conv's fused epilogue
+                skip_add = False
+                continue
+            if kind == "conv":
+                _, idx, _out_c, _k, stride, _bn, act = op
+                fp = folded[f"conv_{idx}"]
+                y_f = darknet.conv_nhwc(h_f, fp["kernel"].float(), stride) + fp["bias"]
+                skip_q = skip_s = None
+                if i + 1 < n_ops and ops[i + 1][0] == "add":
+                    skip_q, spos, sf = saved[ops[i + 1][1]]
+                    skip_s = scale[spos]
+                    out_pos, skip_add = i + 2, True  # post-add position's scale
+                if idx in island:
+                    y_q = darknet.conv_nhwc(h_q.float() * scale[s], fp["kernel"].float(),
+                                            stride) + fp["bias"]
+                else:
+                    p = qp[f"conv_{idx}"]
+                    acc = conv_acc_reference(h_q, p["kernel_q"], stride)
+                    y_q = fma_f32(acc.float(), p["w_scale"], p["bias"])
+                if act:
+                    y_q, y_f = darknet.leaky(y_q), darknet.leaky(y_f)
+                if skip_q is not None:
+                    y_q = fma_f32(skip_q.float(), skip_s, y_q)
+                    y_f = y_f + sf
+                if idx not in island:
+                    errs[idx] = torch.sqrt(torch.mean(torch.square(y_q - y_f))
+                                           / (torch.mean(torch.square(y_f)) + 1e-12))
+                h_q, s, h_f = quantize(y_q, inv[out_pos]), out_pos, y_f
+            elif kind in ("save", "mark"):
+                saved[op[1]] = (h_q, s, h_f)
+            elif kind == "add":
+                sq, spos, sf = saved[op[1]]
+                y = sq.float() * scale[spos] + h_q.float() * scale[s]
+                h_q, s, h_f = quantize(y, inv[out_pos]), out_pos, sf + h_f
+            elif kind == "restore":
+                h_q, s, h_f = saved[op[1]]
+            elif kind == "concat":
+                sq, spos, sf = saved[op[1]]
+                y = torch.cat([h_q.float() * scale[s], sq.float() * scale[spos]], dim=-1)
+                h_q, s = quantize(y, inv[out_pos]), out_pos
+                h_f = torch.cat([h_f, sf], dim=-1)
+            elif kind == "upsample":
+                h_q = h_q.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+                h_f = h_f.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            elif kind == "output":
+                pass
+            else:
+                raise ValueError(f"unknown op {op}")
+    vals = torch.stack(list(errs.values())).double().cpu().tolist()
+    return dict(zip(errs, vals))
 
 
 def to_device(qparams: dict, device) -> dict:

@@ -46,6 +46,7 @@ from test_torch_int8_pipeline import (
     _read_csv,
     _testdir,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

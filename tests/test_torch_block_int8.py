@@ -32,6 +32,7 @@ from face_vijnana_yolov3_tpu_torch.ops.block_int8 import (
 )
 from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import requant_reference
 from test_torch_conv_int8 import _fragment_rows_cols
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

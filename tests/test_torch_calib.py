@@ -31,6 +31,7 @@ from face_vijnana_yolov3_tpu.models.detector import FaceDetectorModel as JaxMode
 from face_vijnana_yolov3_tpu_torch.convert import folded_from_jax, params_from_jax
 from face_vijnana_yolov3_tpu_torch.models import darknet, quant
 from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

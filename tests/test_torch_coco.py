@@ -64,6 +64,7 @@ from face_vijnana_yolov3_tpu_torch.utils.io import imread, imsave
 
 from oracles import oracle_coco_decode, oracle_correct_coco_boxes, oracle_nms_multi
 from test_torch_postprocess import ulp_distance
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -14,6 +14,7 @@ import pytest
 
 from face_vijnana_yolov3_tpu.api import config as jax_config
 from face_vijnana_yolov3_tpu_torch.api import config as port_config
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

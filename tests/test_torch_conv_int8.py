@@ -28,6 +28,7 @@ from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
     out_size,
     requant_reference,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -27,6 +27,7 @@ from face_vijnana_yolov3_tpu_torch.models.detector import (
     FaceDetectorModel,
     init_head_params,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -2,8 +2,9 @@
 evaluate CLI's detection modes (api/evaluate.py) held to the JAX package's.
 
 Both are jax-free modules the port may not import. The harness is a copy:
-its source after the module docstring equals the original's, and on the
-same solution files both give the same P-R curves and APs, bit for bit. The
+its source after the module docstring equals the original's, except for
+the matching the port splits by image, and on the same solution files both
+give the same matching, P-R curves and APs, bit for bit. The
 CLI's detection modes write the same p_r_curve.h5 and render a PNG (its
 identification modes: tests/test_torch_identification.py).
 """
@@ -20,17 +21,25 @@ from face_vijnana_yolov3_tpu.api import evaluate as jax_evaluate
 from face_vijnana_yolov3_tpu.evals import detection as jax_detection
 from face_vijnana_yolov3_tpu_torch.api import evaluate
 from face_vijnana_yolov3_tpu_torch.evals import detection
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
+
+
+# The port splits the original's match_solution into a per-image
+# match_images and a match_solution that concatenates it; their results are
+# held to the original's by test_match_solution_equals_the_original.
+REBUILT = ("match_images", "match_solution")
 
 
 def _body(module) -> str:
-    """The module's source without its docstring."""
+    """The module's source without its docstring and REBUILT."""
     tree = ast.parse(Path(module.__file__).read_text())
-    tree.body = tree.body[1:]
+    tree.body = [n for n in tree.body[1:] if getattr(n, "name", None) not in REBUILT]
     return ast.unparse(tree)
 
 
 def test_harness_source_equals_the_original():
     assert _body(detection) == _body(jax_detection)
+    assert not hasattr(jax_detection, "match_images")
 
 
 def _fixture(tmp_path, seed):
@@ -70,6 +79,34 @@ def test_map_sweep_equals_the_original(tmp_path, seed):
     for th in (0.5, 0.75):
         for g, w in zip(detection.cal_mAP_fd(gt, sol, th), jax_detection.cal_mAP_fd(gt, sol, th)):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["seed0", "seed1", "no_overlap", "empty"])
+def test_match_solution_equals_the_original(tmp_path, case):
+    """The rebuilt match_solution gives the original's pooled scores, IoUs
+    and GT count bit for bit, and raises its errors: on a solution with no
+    row overlapping a face, and on an empty one. Per image, match_images
+    pools to the same arrays."""
+    gt, sol = _fixture(tmp_path, {"seed0": 0, "seed1": 1}.get(case, 0))
+    if case == "no_overlap":
+        Path(sol).write_text("im0.jpg,900,900,5,5,0.9\nim1.jpg,950,950,5,5,0.4\n")
+    elif case == "empty":
+        Path(sol).write_text("")
+    if case in ("no_overlap", "empty"):
+        with pytest.raises(ValueError, match="to score") as want:
+            jax_detection.match_solution(gt, sol)
+        with pytest.raises(ValueError, match="to score") as got:
+            detection.match_solution(gt, sol)
+        assert str(got.value) == str(want.value)
+        return
+    got = detection.match_solution(gt, sol)
+    want = jax_detection.match_solution(gt, sol)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    matches, counts = detection.match_images(gt, sol)
+    assert len(matches) == len(counts) == 12 and counts.sum() == want[2]
+    np.testing.assert_array_equal(np.concatenate([s for s, _ in matches]), want[0])
+    np.testing.assert_array_equal(np.concatenate([i for _, i in matches]), want[1])
 
 
 def test_cli_detection_modes_equal_the_original(tmp_path, monkeypatch):

@@ -38,6 +38,7 @@ from face_vijnana_yolov3_tpu_torch.core.export import (
     export_embedder,
     load_artifact,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]

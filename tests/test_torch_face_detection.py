@@ -42,6 +42,7 @@ from face_vijnana_yolov3_tpu_torch.ops.letterbox import (
     letterbox_geometry,
     letterbox_host,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ import pytest
 from face_vijnana_yolov3_tpu.data import facedb as jax_facedb
 from face_vijnana_yolov3_tpu_torch.data import facedb, synthetic
 from face_vijnana_yolov3_tpu_torch.utils.io import imread, imsave
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import synthetic_fi_e2e  # noqa: E402  (the JAX package's synthetic identity tree)

@@ -35,6 +35,7 @@ from face_vijnana_yolov3_tpu_torch.ops.front_fused import (
     fused_front_plain,
 )
 from test_torch_folded import perturbed_params
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

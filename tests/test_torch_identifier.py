@@ -38,6 +38,7 @@ from face_vijnana_yolov3_tpu_torch.core import keras_import
 from face_vijnana_yolov3_tpu_torch.models import darknet, identifier, quant
 from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
 from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -11,11 +11,12 @@ postprocess and the reconstruction decoder, export the int8 detector
 through the `fvy::` custom ops and load it back, serve it with
 `detect_quant_dp` and the f32 head with `detect_spatial` (one process),
 import the training, dataset, Keras-h5, native-loader, mAP, subject-DB,
-identification, COCO demo, box selection, profiling, export CLI and mesh
-modules, then assert that neither `jax`
-nor `face_vijnana_yolov3_tpu` is in sys.modules. The static check reads
-every source of the package and chip_smoke.py: no import of either, and no
-allow-list.
+identification, COCO demo, box selection, profiling, export CLI, mesh
+and release-loop (scripts/) modules, run int8_error_profile, then assert
+that neither `jax` nor `face_vijnana_yolov3_tpu` is in sys.modules, nor a
+module of the JAX repo's scripts/ or bench.py. The static check reads
+every source of the package and chip_smoke.py: no import of either, nor of
+a name of that tooling, and no allow-list.
 """
 
 import ast
@@ -25,6 +26,7 @@ import sys
 from pathlib import Path
 
 import face_vijnana_yolov3_tpu_torch
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 PACKAGE = Path(face_vijnana_yolov3_tpu_torch.__file__).parent
 CHIP_SMOKE = PACKAGE.parent / "chip_smoke.py"
@@ -62,6 +64,9 @@ from face_vijnana_yolov3_tpu_torch.ops import library
 from face_vijnana_yolov3_tpu_torch.core import export as fvy_export
 from face_vijnana_yolov3_tpu_torch.api import export_cli
 from face_vijnana_yolov3_tpu_torch.parallel import mesh, serving, spatial
+from face_vijnana_yolov3_tpu_torch.scripts import (
+    release_ap, select_serving_tail, synthetic_e2e, synthetic_fi_e2e, train_qat_recipe)
+from face_vijnana_yolov3_tpu_torch.models import quant
 import os.path
 import tempfile
 
@@ -78,6 +83,9 @@ with tempfile.TemporaryDirectory() as d:
     got, _ = fvy_export.load_artifact(os.path.join(d, "int8.fvyx"))(x)
     assert np.array_equal(got.numpy(), cands)
 head = serving.detect_quant_dp(fd.model, None, fd._qparams, fused_blocks=True)(x)
+prof = quant.int8_error_profile(fd._qparams, fd.model.fold(), x, fd.model.ops)
+assert len(prof) == 52 and all(np.isfinite(v) for v in prof.values()), prof
+assert not checkpoints.checkpoint_exists("does_not_exist.pt")
 sp = spatial.detect_spatial(fd.model, None, compute_dtype=torch.float32)(fd.model.fold(), x)
 assert head.shape == sp.shape == (2, 2, 2, 6), (head.shape, sp.shape)
 trunk = apply_graph_folded_front(fd.model.fold(), torch.from_numpy(x), fd.model.ops)
@@ -116,6 +124,11 @@ assert rm(embs[0]).shape == (2, 64, 64, 3)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "face_vijnana_yolov3_tpu"))
 assert not leaked, leaked
+repo = os.path.dirname(os.path.dirname(face_vijnana_yolov3_tpu_torch.__file__))
+jax_tools = sorted(m for m, mod in sys.modules.items()
+                   if (getattr(mod, "__file__", None) or "").startswith(
+                       (os.path.join(repo, "scripts") + os.sep, os.path.join(repo, "bench.py"))))
+assert not jax_tools, jax_tools
 print("OK")
 """
 
@@ -140,8 +153,12 @@ def _imported_names(path: Path):
 def test_no_jax_import_in_package_sources():
     sources = [*PACKAGE.rglob("*.py"), CHIP_SMOKE]
     assert CHIP_SMOKE.exists()
+    # The JAX repo's tooling (scripts/*.py, bench.py) is not a package: a
+    # bare import of one of its names would load it from there.
+    jax_tools = {p.stem for p in (PACKAGE.parent / "scripts").glob("*.py")} | {"bench"}
     for path in sources:
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top != "jax", f"{path}: imports {name}"
             assert top != "face_vijnana_yolov3_tpu", f"{path}: imports {name}"
+            assert top not in jax_tools, f"{path}: imports {name}"

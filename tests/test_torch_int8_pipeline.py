@@ -47,6 +47,7 @@ from face_vijnana_yolov3_tpu_torch.ops.letterbox import (
     letterbox_host,
 )
 from face_vijnana_yolov3_tpu_torch.utils.io import imread, imsave
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -24,6 +24,7 @@ from face_vijnana_yolov3_tpu_torch.core import keras_import
 from face_vijnana_yolov3_tpu_torch.core.checkpoints import load_checkpoint
 from face_vijnana_yolov3_tpu_torch.data import synthetic
 from face_vijnana_yolov3_tpu_torch.models import darknet
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

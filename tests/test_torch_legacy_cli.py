@@ -28,6 +28,7 @@ from face_vijnana_yolov3_tpu_torch.core.keras_import import save_detector_keras_
 from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
 
 from test_torch_face_detection import SCORE_ATOL, _make_synthetic_testdir
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 port_fd.DEBUG = False

@@ -16,6 +16,7 @@ from face_vijnana_yolov3_tpu.ops import letterbox as jlb
 from face_vijnana_yolov3_tpu.ops import resize as jrs
 from face_vijnana_yolov3_tpu_torch.ops import letterbox as lb
 from face_vijnana_yolov3_tpu_torch.ops import resize as rs
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ from face_vijnana_yolov3_tpu_torch.ops.block_int8 import block_int8
 from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import conv_int8
 from face_vijnana_yolov3_tpu_torch.ops.front_fused import fused_front
 from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,7 @@ from face_vijnana_yolov3_tpu.data import native_loader as jax_nl
 from face_vijnana_yolov3_tpu_torch.api import face_detection as port_fd
 from face_vijnana_yolov3_tpu_torch.api.config import FdConf
 from face_vijnana_yolov3_tpu_torch.data import native_loader as nl
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -24,6 +24,7 @@ from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import (
     nms_sweep_reference,
     workspace_chunk,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

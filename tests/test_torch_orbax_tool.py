@@ -17,6 +17,7 @@ from face_vijnana_yolov3_tpu_torch.core.checkpoints import (
     load_opt_state,
     load_train_meta,
 )
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import orbax_to_pt  # noqa: E402

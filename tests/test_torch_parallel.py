@@ -43,6 +43,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 S, D = 64, 8

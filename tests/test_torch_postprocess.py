@@ -31,6 +31,7 @@ from face_vijnana_yolov3_tpu_torch.ops.postprocess import (
 )
 
 from oracles import oracle_face_detect, oracle_iou, oracle_nms_single
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

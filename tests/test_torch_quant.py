@@ -35,6 +35,7 @@ from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
 from face_vijnana_yolov3_tpu_torch.ops.postprocess import FacePostprocessConfig
 
 from test_torch_folded import perturbed_params
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

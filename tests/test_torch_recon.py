@@ -35,6 +35,7 @@ from face_vijnana_yolov3_tpu_torch.api import face_identification as port_fi
 from face_vijnana_yolov3_tpu_torch.api.config import Conf
 from face_vijnana_yolov3_tpu_torch.convert import identifier_params_from_jax
 from face_vijnana_yolov3_tpu_torch.models import recon
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

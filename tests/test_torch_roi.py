@@ -18,6 +18,7 @@ import torch
 from face_vijnana_yolov3_tpu.ops import roi as jax_roi
 from face_vijnana_yolov3_tpu_torch.ops import roi
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -59,6 +59,7 @@ from face_vijnana_yolov3_tpu_torch.models import darknet, detector
 from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_geometry
 from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import synthetic_e2e  # noqa: E402  (the JAX package's synthetic-set generator)

@@ -46,6 +46,7 @@ from face_vijnana_yolov3_tpu_torch.models.identifier import (
     triplet_step_loss,
 )
 from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+from torch_cleanup import clean_up_module  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 port_fi.DEBUG = False
