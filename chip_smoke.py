@@ -120,6 +120,21 @@ which raises on failure (exit code != 0):
               per int8 conv), synthetic_fi_e2e (the triplet loss falling;
               top-1 and VAL/FAR printed): the main path, whose launch
               counts go to `launches_release` (B, A0 and A must move).
+15. programs — the captured serving programs (core/programs.py; PROGRAM_*),
+              in a fresh process (`programs_phase_fresh`): detect_batch
+              and detect_batch_fused (a full chunk and a short last chunk
+              padded to the batch, which must reuse the full chunk's
+              program) at f32 b8, bf16 guard 2 b32 and int8 blocks on b32,
+              each replay against the eager `_detect_program` on the same
+              inputs (int8 torch.equal; f32, bf16 within their rules); an
+              f32 device-ROI identify chunk of 17 crops (the programs of 16
+              and 1) against the eager program functions (equal rows); a
+              capture that calls `.item()` must raise ProgramError; eager
+              vs replay ms a call and the device busy share of each;
+              launches under replay go to `launches_programs` and must
+              equal the kernels a profiler trace of the replays names (B,
+              A0 and A must move). Every serving call of the earlier
+              phases replays captured programs as well.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -302,6 +317,23 @@ RELEASE_TAILS = (0, 3)
 RELEASE_RESAMPLES = 200
 RELEASE_PROFILE_IMAGES = 8
 RELEASE_FI_SUBJECTS, RELEASE_FI_EPOCHS = 6, 4
+# [programs]: the captured serving programs (core/programs.py) against the
+# eager functions they capture, at (label, precision, batch, bf16 guard
+# depth); staged uint8 frames of two sizes in one 512x640 staging bucket (so
+# every chunk has two geometries), a short last chunk of PROGRAM_SHORT real
+# frames padded to the batch; an identify chunk of PROGRAM_ROI_BOXES crops;
+# each time over PROGRAM_REPS calls, the busy share over PROGRAM_BUSY_REPS
+# under torch.profiler. f32 candidates
+# are held to phase 8's rule (SERVE_*), bf16 to the bf16-head rule of
+# tests/test_torch_int8_pipeline.py (box edges within one letterbox pixel,
+# scores within 1e-2), int8 to torch.equal.
+PROGRAM_RUNS = (("f32", "float32", 8, None), ("bf16", "bfloat16", 32, 2),
+                ("int8", "int8", 32, None))
+PROGRAM_FRAMES = ((480, 640), (456, 608))
+PROGRAM_SHORT = 3
+PROGRAM_ROI_BOXES = (4, 4, 4, 5)  # boxes on each frame: 17 crops, pieces of 16 and 1
+PROGRAM_REPS, PROGRAM_BUSY_REPS = 10, 5
+PROGRAM_BF16_BOX_TOL, PROGRAM_BF16_SCORE_TOL = 1.0, 1e-2
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
@@ -354,6 +386,61 @@ def graph_ms(fn, reps: int = 20) -> list[float]:
     times = [t / reps for t in cuda_ms(graph.replay, 5, warmup=1)]
     del graph
     return times
+
+
+def traced_launches(prof) -> dict:
+    """For each registered kernel wrapper (kernels.LAUNCH_COUNTERS), the
+    launches of its kernels in a torch.profiler trace, by kernel name."""
+    from face_vijnana_yolov3_tpu_torch import kernels
+
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k.__name__: sum(any(t in n for t in k.trace_names) for n in names)
+            for k in kernels.LAUNCH_COUNTERS}
+
+
+def device_trace(fn, reps: int) -> dict:
+    """`fn()` `reps` times under torch.profiler (CUDA activity), after one
+    call, as ms a call: wall; device, the summed own time of the device
+    events (kernels, copies, memsets); busy, the union of their intervals;
+    copy, the copies' and memsets' share of device; and the busy share,
+    busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA))
+    device = sum(b - a for a, b, _ in evs) / 1e3
+    copy = sum(b - a for a, b, n in evs if n.startswith(("Memcpy", "Memset"))) / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in evs:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    return dict(wall_ms=wall / reps, device_ms=device / reps, busy_ms=busy / reps,
+                copy_ms=copy / reps, busy=busy / wall, events=len(evs) / reps)
+
+
+def trace_text(rates: dict, name: str, eager_fn, replay_fn) -> str:
+    """`device_trace` of an eager and a replayed call; the numbers go to
+    `rates` under `name`."""
+    parts = []
+    for m, fn in (("eager", eager_fn), ("replay", replay_fn)):
+        t = device_trace(fn, PROGRAM_BUSY_REPS)
+        rates[f"{name}_{m}_busy"] = t["busy"]
+        rates[f"{name}_{m}_trace"] = t
+        parts.append(f"{m} busy {t['busy']:.1%} (wall {t['wall_ms']:.3f}, busy "
+                     f"{t['busy_ms']:.3f}, device {t['device_ms']:.3f}, copies "
+                     f"{t['copy_ms']:.3f} ms, {t['events']:.0f} events a call)")
+    return "; ".join(parts)
 
 
 def quartiles(xs) -> str:
@@ -1614,8 +1701,8 @@ def identify_phase(tmp, card, dev):
         raise AssertionError("[identify] the card's identify rows disagree with the CPU's")
 
     # Device crops (ops/roi.py on the card) vs the host crops.
-    owners, crops_of = fi._roi_plan(images, boxes_list)
-    d_crops = crops_of(slice(0, len(owners)))
+    owners, plan = fi._roi_plan(images, boxes_list)
+    d_crops = fi._roi_crops(plan, slice(0, len(owners)))
     crop_err = float((d_crops.cpu() - torch.from_numpy(np.asarray(crops32))).abs().max())
     crop_err64 = float((d_crops.cpu() - torch.from_numpy(crops)).abs().max())
     flat_roi = [r for rows in roi_rows for r in rows]
@@ -2624,6 +2711,304 @@ def release_phase(tmp, card, dev):
     return launches, rec
 
 
+def programs_phase(tmp, card, dev, rng):
+    """The captured serving programs on the card (phase 15, PROGRAM_*):
+    for each of PROGRAM_RUNS, `detect_batch` (f32 batch from host memory)
+    and `detect_batch_fused` (staged uint8 frames of two sizes, a full
+    chunk and a short last chunk of PROGRAM_SHORT frames padded to the
+    batch, which must reuse the full chunk's program) against the eager
+    `_detect_program` on the same (padded) inputs: int8 torch.equal, f32
+    and bf16 within their rules; then an f32 device-ROI identify chunk
+    (the PROGRAM_ROI_BOXES crops, 17: the programs of 16 and 1) against
+    the eager program functions (equal rows); then a
+    function that syncs with the host (`.item()`) must raise ProgramError
+    at capture, and the card must serve after it. The launch counts are
+    zeroed after the captures and read after the replays, which
+    torch.profiler traces: the kernels the trace shows by name must equal
+    the counts, and A0, A and B must have launched inside replayed
+    programs. Each case prints eager vs replay ms a call (CUDA events
+    around the serving call, from host memory, host work included) and
+    the device busy share of each (`device_trace`). Returns (the launches
+    under replay, the numbers)."""
+    from face_vijnana_yolov3_tpu_torch.api import face_identification as fim
+    from face_vijnana_yolov3_tpu_torch.api.config import Conf, FdConf
+    from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipeline
+    from face_vijnana_yolov3_tpu_torch.convert import (
+        identifier_params_from_jax,
+        params_from_jax,
+    )
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import save_checkpoint
+    from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache, ProgramError
+    from face_vijnana_yolov3_tpu_torch.models import darknet
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch import kernels
+    from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
+    from face_vijnana_yolov3_tpu_torch.ops import (  # noqa: F401  (register the wrappers)
+        block_int8,
+        conv_int8,
+        front_fused,
+        nms_sweep,
+    )
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_geometry, letterbox_host
+    from torch.profiler import ProfilerActivity, profile
+
+    S = IMAGE_SIZE
+    kernel_fns = kernels.LAUNCH_COUNTERS
+    replay_launches = collections.Counter()
+    rates = {}
+    model = FaceDetectorModel(image_size=S, device="cpu")
+    params, state = model.init_params(SEED)
+    darknet.perturb_batchnorm(params, state, model.ops, SEED + 1)
+    ckpt = os.path.join(tmp, "fd_programs.pt")
+    save_checkpoint(ckpt, params_from_jax(params, state))
+    del model, params, state
+    b_max = max(r[2] for r in PROGRAM_RUNS)
+    frames = [rng.integers(0, 256, PROGRAM_FRAMES[k % 2] + (3,), dtype=np.uint8)
+              for k in range(b_max)]
+    staged_all = np.zeros((b_max,) + PROGRAM_FRAMES[0] + (3,), np.uint8)
+    for k, im in enumerate(frames):
+        staged_all[k, : im.shape[0], : im.shape[1]] = im
+    geoms_all = [letterbox_geometry(*im.shape[:2], S) for im in frames]
+
+    def diff(label, got, want):
+        """Check replayed (cands, counts) against the eager ones."""
+        (gc, gn), (wc, wn) = got, want
+        err = float(np.abs(gc - wc).max())
+        same = np.array_equal(gc, wc) and np.array_equal(gn, wn)
+        if label == "int8":
+            ok = same
+        elif not np.array_equal(gn, wn):
+            ok = False
+        elif label == "f32":
+            box_exact = float(np.mean(gc[..., :4] == wc[..., :4]))
+            ok = box_exact >= SERVE_BOX_EXACT and float(
+                np.abs(gc[..., 5] - wc[..., 5]).max()) <= SERVE_SCORE_TOL
+        else:
+            ok = (float(np.abs(gc[..., :4] - wc[..., :4]).max()) <= PROGRAM_BF16_BOX_TOL
+                  and float(np.abs(gc[..., 5] - wc[..., 5]).max()) <= PROGRAM_BF16_SCORE_TOL)
+        return same, err, ok
+
+    def host(out):
+        return tuple(t.cpu().numpy() for t in out)
+
+    int8_check = None
+    for label, precision, b, depth in PROGRAM_RUNS:
+        conf = FdConf(model_loading=True, model_path=ckpt, int8_pallas_blocks=True,
+                      int8_tail_auto=False, bf16_f32_front=depth or 2)
+        conf.nn_arch.image_size = S
+        conf.hps.face_conf_th = 0.05
+        fd = FaceDetectorPipeline(conf, precision=precision, device=dev)
+        x = rng.uniform(size=(b, S, S, 3)).astype(np.float32)
+        if precision == "int8":
+            fd.calibrate_int8(x)  # eager, before the first capture
+        staged, geoms = staged_all[:b], geoms_all[:b]
+        short, short_geoms = staged_all[:PROGRAM_SHORT], geoms_all[:PROGRAM_SHORT]
+        # The captures.
+        fd.detect_batch(x)
+        fd.detect_batch_fused(staged, geoms, pad_batch_to=b)
+        fd.detect_batch_fused(short, short_geoms, pad_batch_to=b)
+        keys = fd.programs.keys()
+        # The replays, with the counts zeroed just before and read after,
+        # and the kernels their trace shows.
+        for k in kernel_fns:
+            k.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = fd.detect_batch(x)
+            got_f = fd.detect_batch_fused(staged, geoms, pad_batch_to=b)
+            got_s = fd.detect_batch_fused(short, short_geoms, pad_batch_to=b)
+            torch.cuda.synchronize()
+        launched = {k.__name__: k.launches for k in kernel_fns}
+        traced = traced_launches(prof)
+        replay_launches.update(launched)
+        if len(keys) != 2 or len(fd.programs) != 2:
+            raise AssertionError(f"[programs] {label}: expected one detect and one fused "
+                                 f"program (the short chunk reusing it), got {keys}")
+        # The eager functions on the same (padded) device inputs.
+        with torch.inference_mode():
+            x_dev = torch.from_numpy(x).to(dev)
+            want = host(fd._detect_program(x_dev))
+            ins_f = fd._fused_inputs(staged, geoms, b, None)[:3]
+            ins_s = fd._fused_inputs(short, short_geoms, b, None)[:3]
+            want_f = host(fd._fused_program(*ins_f))
+            want_s = tuple(a[:PROGRAM_SHORT] for a in host(fd._fused_program(*ins_s)))
+        checks = {name: diff(label, g, w) for name, g, w in (
+            ("detect_batch", got, want), ("fused", got_f, want_f),
+            ("fused short chunk", got_s, want_s))}
+        if label == "int8":
+            int8_check = (fd, x, got)
+        # Times of the serving call from host memory, eager vs replay.
+        key_f = fd._fused_key(ins_f[0], False)
+
+        def eager_detect():
+            with torch.inference_mode():
+                return host(fd._detect_program(torch.as_tensor(x, device=dev)))
+
+        def eager_fused():
+            with torch.inference_mode():
+                ins = fd._fused_inputs(staged, geoms, b, None)[:3]
+                return host(fd._fused_program(*ins))
+
+        calls = {
+            "detect_batch": (eager_detect, lambda: fd.detect_batch(x)),
+            "detect_batch_fused": (eager_fused,
+                                   lambda: fd.detect_batch_fused(staged, geoms, pad_batch_to=b)),
+        }
+        timing = []
+        for name, (eager_fn, replay_fn) in calls.items():
+            ms = {m: cuda_ms(fn, PROGRAM_REPS, warmup=2)
+                  for m, fn in (("eager", eager_fn), ("replay", replay_fn))}
+            for m in ("eager", "replay"):
+                rates[f"{label}_b{b}_{name}_{m}_ms"] = float(np.median(ms[m]))
+            timing.append(f"{name}: eager {quartiles(ms['eager'])}; replay "
+                          f"{quartiles(ms['replay'])}; " + trace_text(
+                              rates, f"{label}_b{b}_{name}", eager_fn, replay_fn))
+        with torch.inference_mode():
+            prog_ms = {m: float(np.median(cuda_ms(fn, PROGRAM_REPS, warmup=2))) for m, fn in (
+                ("eager", lambda: fd._fused_program(*ins_f)),
+                ("replay", lambda: fd.programs.run(key_f, fd._fused_program, *ins_f)))}
+        rates[f"{label}_b{b}_fused_device_inputs_ms"] = prog_ms
+        print(f"[programs] {label} b={b} on {card}: programs {keys}; replayed vs eager "
+              + "; ".join(f"{n} torch.equal {c[0]}, max |diff| {c[1]:.3g}"
+                          for n, c in checks.items())
+              + f"; launches under replay {launched}, in the replays' trace {traced}")
+        print(f"[programs] {label} b={b} on {card}, a call from host memory: "
+              + " | ".join(timing) + f" | fused program on device inputs: eager "
+              f"{prog_ms['eager']:.3f} ms, replay {prog_ms['replay']:.3f} ms")
+        if not all(c[2] for c in checks.values()):
+            raise AssertionError(f"[programs] {label}: a replayed program disagrees with the "
+                                 f"eager one: {checks}")
+        if traced != launched:
+            raise AssertionError(f"[programs] {label}: the replays' trace shows {traced} "
+                                 f"kernel launches, the counters {launched}")
+        if traced["nms_sweep"] < 3 or (label == "int8" and min(
+                traced["conv_int8"], traced["block_int8"]) == 0):
+            raise AssertionError(f"[programs] {label}: a kernel did not launch under "
+                                 f"replay: {traced}")
+        if label != "int8":
+            del fd
+        torch.cuda.empty_cache()
+
+    # The identify chunk: f32 device-ROI, one program.
+    fi_model = FaceIdentifierModel(image_size=S, device="cpu")
+    params, state = fi_model.init_params(SEED + 7)
+    darknet.perturb_batchnorm(params, state, fi_model.ops, SEED + 8)
+    fi_ckpt = os.path.join(tmp, "fi_programs.pt")
+    save_checkpoint(fi_ckpt, identifier_params_from_jax(params, state))
+    del fi_model, params, state
+    conf = Conf()
+    conf.fi_conf.model_loading, conf.fi_conf.model_path = True, fi_ckpt
+    conf.fi_conf.nn_arch.image_size = S
+    conf.fi_conf.hps.sim_th = 1e9  # every crop matches: the rows show every argmin
+    conf.fd_conf.model_loading, conf.fd_conf.model_path = True, ckpt
+    conf.fd_conf.nn_arch.image_size = S
+    fi = fim.FaceIdentifierPipeline(conf, device=dev)
+    images = frames[:len(PROGRAM_ROI_BOXES)]
+    boxes_list = []
+    for im, nb in zip(images, PROGRAM_ROI_BOXES):
+        h, w = im.shape[:2]
+        x0, y0 = rng.uniform(0, w * 0.6, nb), rng.uniform(0, h * 0.6, nb)
+        boxes_list.append(np.stack([x0, y0, x0 + rng.uniform(40, 200, nb),
+                                    y0 + rng.uniform(40, 200, nb),
+                                    rng.uniform(0.05, 1, nb)], axis=1))
+    reg = fi.embed(np.asarray([letterbox_host(im[:160, :160] / 255, S, "cubic")[0]
+                               for im in frames[:8]], np.float32))
+    ids = [f"s{k}" for k in range(len(reg))]
+    reg_dev = torch.from_numpy(reg).to(dev)
+    fi._identify_chunk_device(images, boxes_list, ids, reg_dev)  # the captures
+    owners, plan = fi._roi_plan(images, boxes_list)
+    progs = fi._roi_inputs(plan, reg_dev)
+    with torch.inference_mode():  # the eager program functions
+        e_idx, e_dist = (torch.cat(t) for t in zip(*(fn(*ins) for _k, fn, *ins in progs)))
+    for k in kernel_fns:
+        k.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rows = fi._identify_chunk_device(images, boxes_list, ids, reg_dev)
+        torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernel_fns}
+    traced = traced_launches(prof)
+    replay_launches.update(launched)
+    with torch.inference_mode():
+        r_idx, r_dist = (torch.cat(t) for t in zip(*(fi.programs.run(*p) for p in progs)))
+    torch.cuda.synchronize()
+    n = len(owners)
+    eager_rows = [[] for _ in images]
+    for r, (j, k) in enumerate(owners):
+        eager_rows[j].append((k, ids[int(e_idx[r])]))
+    got_rows = [[(row["box_index"], row["subject_id"]) for row in rr] for rr in rows]
+    same = torch.equal(e_idx, r_idx) and torch.equal(e_dist, r_dist)
+
+    def eager_chunk():
+        _o, pl = fi._roi_plan(images, boxes_list)
+        with torch.inference_mode():
+            return [torch.cat(t).cpu() for t in zip(*(
+                f(*i) for _k, f, *i in fi._roi_inputs(pl, reg_dev)))]
+
+    def replay_chunk():
+        return fi._identify_chunk_device(images, boxes_list, ids, reg_dev)
+
+    ms = {m: cuda_ms(f, PROGRAM_REPS, warmup=2)
+          for m, f in (("eager", eager_chunk), ("replay", replay_chunk))}
+    for m in ("eager", "replay"):
+        rates[f"identify_chunk_{m}_ms"] = float(np.median(ms[m]))
+    print(f"[programs] f32 device-ROI identify chunk ({len(images)} frames, {n} crops, "
+          f"programs {[p[0][:2] for p in progs]}) on {card}: rows equal to the eager "
+          f"programs' {got_rows == eager_rows}, (idx, dist) torch.equal {same}; launches "
+          f"under replay {launched}, in the trace {traced}; eager {quartiles(ms['eager'])}; "
+          f"replay {quartiles(ms['replay'])}; "
+          + trace_text(rates, "identify_chunk", eager_chunk, replay_chunk))
+    if (got_rows != eager_rows or n != sum(PROGRAM_ROI_BOXES) or not same
+            or [p[0][1] for p in progs] != [16, 1]):
+        raise AssertionError("[programs] the replayed identify chunk disagrees with the "
+                             "eager one")
+    if traced != launched:
+        raise AssertionError(f"[programs] identify: the trace shows {traced}, the "
+                             f"counters {launched}")
+    del fi
+    torch.cuda.empty_cache()
+
+    # A host sync inside a program must raise at capture, never serve eagerly.
+    cache = ProgramCache(dev)
+    t = torch.arange(8.0, device=dev)
+    try:
+        cache.run(("host_sync", 8), lambda v: v * float(v.sum().item()), t)
+    except ProgramError as e:
+        err = str(e).splitlines()[0][:160]
+    else:
+        raise AssertionError("[programs] a capture with .item() did not raise")
+    fd, x, got = int8_check
+    again = fd.detect_batch(x)
+    print(f"[programs] capture of a function calling .item(): ProgramError ({err}); "
+          f"{len(cache)} programs kept; the int8 program replays after it, equal "
+          f"{all(np.array_equal(a, g) for a, g in zip(again, got))}")
+    if len(cache) or not all(np.array_equal(a, g) for a, g in zip(again, got)):
+        raise AssertionError("[programs] the card does not serve as before after a "
+                             "failed capture")
+    del fd, int8_check
+    torch.cuda.empty_cache()
+    return dict(replay_launches), rates
+
+
+def programs_phase_fresh(tmp: str) -> tuple[dict, dict]:
+    """Phase 15 in a fresh process, its lines passed through: late in this
+    long process torch.profiler drops device events (a whole smoke's trace
+    of the int8 replays named 25 of 36 A0 and 51 of 60 A launches; a fresh
+    process names all), and the phase holds the counters to that trace.
+    Returns the phase's (launches under replay, numbers)."""
+    out = os.path.join(tmp, "programs_phase.json")
+    code = ("import json, numpy as np, torch, chip_smoke as cs; "
+            "from face_vijnana_yolov3_tpu_torch import kernels; kernels.build(); "
+            f"r = cs.programs_phase({tmp!r}, cs.nvidia_smi(), torch.device(cs.DEVICE), "
+            f"np.random.default_rng(cs.SEED + 15)); json.dump(r, open({out!r}, 'w'))")
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, "-c", code], timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"[programs] the fresh process failed (exit {proc.returncode})")
+    with open(out) as f:
+        launches, rates = json.load(f)
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -2912,7 +3297,12 @@ def main() -> int:
         t_release = time.perf_counter()
         release_launches, release_rates = release_phase(tmp, card, dev)
         print(f"[release] done at {time.perf_counter() - t_start:.0f} s (phase "
-              f"{time.perf_counter() - t_release:.0f} s); total run "
+              f"{time.perf_counter() - t_release:.0f} s)")
+        torch.cuda.empty_cache()
+        t_programs = time.perf_counter()
+        programs_launches, programs_rates = programs_phase_fresh(tmp)
+        print(f"[programs] done at {time.perf_counter() - t_start:.0f} s (phase "
+              f"{time.perf_counter() - t_programs:.0f} s); total run "
               f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
@@ -2932,6 +3322,7 @@ def main() -> int:
         "launches_coco": coco_launches["nms_sweep"],
         "launches_deploy": deploy_launches["nms_sweep"],
         "launches_release": release_launches["nms_sweep"],
+        "launches_programs": programs_launches.get("nms_sweep", 0),
         "events_ms": nms["events_ms"],
         "ms_coco_80x256": coco_rates["nms_ms_80x256"],
         "plain_ms_coco_80x256": coco_rates["nms_plain_ms_80x256"],
@@ -2960,6 +3351,7 @@ def main() -> int:
             "launches_coco": coco_launches[name],
             "launches_deploy": deploy_launches.get(name, 0),
             "launches_release": release_launches[name],
+            "launches_programs": programs_launches.get(name, 0),
         })
         if name == "fused_front":
             kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
@@ -2975,6 +3367,7 @@ def main() -> int:
     print(json.dumps({"coco": coco_rates, "coco_launches": coco_launches}))
     print(json.dumps({"deploy": deploy_rates, "deploy_launches": deploy_launches}))
     print(json.dumps({"release": release_rates, "release_launches": release_launches}))
+    print(json.dumps({"programs": programs_rates, "programs_launches": programs_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

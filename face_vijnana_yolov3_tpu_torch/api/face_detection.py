@@ -39,12 +39,26 @@ The docker variant's one-flag-per-hp CLI (`--mode test --raw_data_path
 ... --image_size 416 ...`) runs through `legacy_main` whenever `--mode` is
 passed, as in the JAX package.
 
+Serving replays captured programs (core/programs.py), as the JAX package
+serves through one jitted program per shape: `_detect` one CUDA graph per
+(precision, input shape, guard depth or blocks flag), `detect_batch_fused`
+one graph of the letterbox matmuls and the detect per (precision, staged
+shape and dtype, one shared geometry or one per image). As in the JAX
+package, staged H/W round up to multiples of `_stage_bucket()`
+(FVY_STAGE_BUCKET, default 128) and the CLI loop pads a short last chunk
+to `batch_size` by repeating its last geometry, so a test set reuses a few
+programs (that chunk is served once, and on the card its padded replay
+costs less than capturing a program of its own size: PERF.md §6); the pad
+is zeros that the letterbox matrices never read, and only the real rows
+are returned. `calibrate_int8`, `autoselect_bf16_front`,
+`train` and any `model.load_state_dict` drop every program: a graph holds
+the addresses of the weights it was captured with. `_detect_program` stays
+the eager function: core/export.py traces it, and the tests hold the
+graphs to it.
+
 Not carried: distillation QAT (`int8_qat_steps`) and `bf16_front_mode="int8"`, both
 measured harmful in the JAX package (ROADMAP.md, code the port should not
-carry). Deliberate divergence: eager PyTorch has no
-per-shape compile to amortise, so `detect_batch_fused` does not pad staged
-buffers to 128-multiples or chunks to a fixed batch as the JAX jit does;
-results are unchanged by that padding.
+carry).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from face_vijnana_yolov3_tpu_torch.core.checkpoints import (
     load_opt_state,
     load_train_meta,
 )
+from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache, watch_weights
 from face_vijnana_yolov3_tpu_torch.data.pipeline import prefetch_batches
 from face_vijnana_yolov3_tpu_torch.models import quant
 from face_vijnana_yolov3_tpu_torch.models.detector import (
@@ -88,10 +103,27 @@ from face_vijnana_yolov3_tpu_torch.ops.postprocess import (
 from face_vijnana_yolov3_tpu_torch.ops.resize import (
     letterbox_device_matmul,
     letterbox_matrices,
+    to_unit_f32,
 )
 from face_vijnana_yolov3_tpu_torch.utils.io import imread, imsave
 
 DEBUG = True
+
+
+def _stage_bucket() -> int:
+    """Staging-dim rounding granularity for the fused device-letterbox path
+    (api/face_detection.py:41-53 of the JAX package).
+
+    The captured program is keyed on the staging shape, so staged H/W round
+    up to multiples of this bucket to bound the program count on
+    mixed-resolution sets. Default 128 = at most a handful of programs for
+    any realistic mix; FVY_STAGE_BUCKET=16 cuts the zero-pad upload waste
+    (720p scaled 3/8 stages at 270x480 -> 384x512 under 128 = 1.5x the
+    bytes; 272x480 under 16 = 1.01x) at the cost of one capture per
+    distinct rounded source size: the right trade for uniform streams (one
+    camera, one dataset), the wrong one for grab-bag image dirs.
+    """
+    return int(os.environ.get("FVY_STAGE_BUCKET", "128"))
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -188,6 +220,9 @@ class FaceDetectorPipeline:
             sd = params_from_jax(*self.model.init_params(0))
         self.model.load_state_dict(sd)
         self.model.eval()
+        # The captured serving programs; new weights make every one stale.
+        self.programs = ProgramCache(self.device)
+        watch_weights(self.model, self)
 
         self._pp_cfg = FacePostprocessConfig(
             image_size=self.image_size,
@@ -199,6 +234,12 @@ class FaceDetectorPipeline:
         self._mat_cache: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
         self._qparams: dict | None = None
         self._folded: dict | None = None  # bf16: folded once, on first use
+
+    def _weights_changed(self):
+        """After `model.load_state_dict`: the folded parameters and every
+        captured program read the old weights."""
+        self._folded = None
+        self.programs.invalidate()
 
     # -------------------------------------------------------------- int8
 
@@ -240,6 +281,7 @@ class FaceDetectorPipeline:
             if tail:
                 print(f"[calibrate_int8] self-check 1-boxF1 {err:.4f} over "
                       f"threshold — serving with bf16 tail {tail}")
+            self.programs.invalidate()
             return
         # Bias correction is off after distillation QAT (not carried here) and
         # with bf16 islands (its walk models an all-int8 program), as in the
@@ -252,6 +294,7 @@ class FaceDetectorPipeline:
                                 bias_correct=bias_correct),
             self.device)
         self.int8_tail_chosen = tail_cfg
+        self.programs.invalidate()
 
     # -------------------------------------------------------------- bf16
 
@@ -325,6 +368,7 @@ class FaceDetectorPipeline:
         if depth != 2:
             print(f"[autoselect_bf16_front] guard narrowed to depth {depth} "
                   f"(1-boxF1 {err:.4f} on {x.shape[0]} images)")
+        self.programs.invalidate()
         return depth, err
 
     def _bf16_front_auto_pending(self) -> bool:
@@ -334,10 +378,30 @@ class FaceDetectorPipeline:
 
     # -------------------------------------------------------------- detect
 
+    def _program_variant(self):
+        """What a program bakes in besides its shapes: the int8 blocks flag
+        or the bf16 guard depth (None at f32)."""
+        if self.precision == "int8":
+            return bool(getattr(self.conf, "int8_pallas_blocks", False))
+        if self.precision == "bfloat16":
+            return self._bf16_front_depth()
+        return None
+
+    def _ready_to_serve(self):
+        """Raise before a capture when int8 is uncalibrated; fold the bf16
+        parameters outside the program, which must not allocate them."""
+        if self.precision == "int8" and self._qparams is None:
+            raise RuntimeError("int8 precision requires calibrate_int8() before detect")
+        if self.precision == "bfloat16":
+            self._folded_params()
+
     @torch.inference_mode()
     def _detect(self, images: torch.Tensor):
-        """(B, S, S, 3) f32 on the device → (cands, counts) on the device."""
-        return self._detect_program(images)
+        """(B, S, S, 3) f32 on the device → (cands, counts) on the device,
+        through the captured program of this shape."""
+        self._ready_to_serve()
+        key = ("detect", self.precision, self._program_variant(), tuple(images.shape))
+        return self.programs.run(key, self._detect_program, images)
 
     def _detect_program(self, images: torch.Tensor):
         """The serving program `_detect` runs, outside inference mode: trunk,
@@ -433,10 +497,10 @@ class FaceDetectorPipeline:
             )
 
             save_detector_keras_h5(self.model.state_dict(), self.conf.model_path)
-        # New weights: every folded or calibrated program is stale (an int8
-        # detect recalibrates on its next batch).
-        self._folded = None
+        # New weights (load_state_dict above dropped the folded parameters
+        # and the programs): an int8 detect recalibrates on its next batch.
         self._qparams = None
+        self.programs.invalidate()
         return losses
 
     # -------------------------------------------------------------- evaluate/test
@@ -451,8 +515,8 @@ class FaceDetectorPipeline:
                                     torch.from_numpy(col).to(self.device))
         return self._mat_cache[key]
 
-    def detect_batch_fused(self, staged, geoms: list, dec_dims=None,
-                           return_staged: bool = False):
+    def detect_batch_fused(self, staged, geoms: list, pad_batch_to: int | None = None,
+                           dec_dims=None, return_staged: bool = False):
         """Strict letterbox + detect, entirely on the device.
 
         `staged` is (B, maxH, maxW, 3) images packed top-left — uint8 raw
@@ -460,47 +524,86 @@ class FaceDetectorPipeline:
         path's order) or float32 already /255 — as numpy or a tensor.
         `geoms` the per-image LetterboxGeometry list. The cv2-faithful cubic
         resize runs as two f32 matmuls; a batch of one geometry broadcasts
-        one matrix pair. dec_dims: (B, 2) staged pixel dims when the JPEGs
-        were decoded at a reduced DCT scale (native_loader.
+        one matrix pair.
+
+        The captured program is keyed on the staging shape (JAX :543-688):
+        staged H/W are padded up to multiples of `_stage_bucket()` and, with
+        pad_batch_to, the batch to that size by repeating the last geometry,
+        so that mixed resolutions and a short last chunk reuse a few
+        programs. The pad is zeros that the letterbox matrices never read;
+        only the real rows come back. dec_dims: (B, 2) staged pixel dims
+        when the JPEGs were decoded at a reduced DCT scale (native_loader.
         decode_batch_staged_scaled); the geoms stay in original coordinates.
-        return_staged=True also returns the staging tensor on the device
-        (as given: uint8 or f32), for the identification ROI crops to reuse
-        (api/face_identification.py:_identify_chunk_device).
+        return_staged=True also returns the padded staging tensor on the
+        device (as given: uint8 or f32), for the identification ROI crops to
+        reuse (api/face_identification.py:_identify_chunk_device).
         """
-        n = staged.shape[0]
-        if n == 0:
+        n_real = staged.shape[0]
+        if n_real == 0:
             out = (np.zeros((0, self.hps["num_cands"], 6), np.float32),
                    np.zeros((0,), np.int32))
             return out + (torch.as_tensor(staged, device=self.device),) \
                 if return_staged else out
-        max_h, max_w = int(staged.shape[1]), int(staged.shape[2])
-        decs = [None] * n if dec_dims is None else list(dec_dims)
-        mats = [self._matrices(g, max_h, max_w, d) for g, d in zip(geoms, decs)]
-        if all(m is mats[0] for m in mats):
-            row_ms, col_ms = mats[0][0][None], mats[0][1][None]
-        else:
-            row_ms = torch.stack([m[0] for m in mats])
-            col_ms = torch.stack([m[1] for m in mats])
-        staged_dev = torch.as_tensor(staged, device=self.device)
-        s = (staged_dev.to(torch.float32) * (1.0 / 255.0)
-             if staged_dev.dtype == torch.uint8 else staged_dev.to(torch.float32))
+        staged_dev, row_ms, col_ms, uniform = self._fused_inputs(
+            staged, geoms, pad_batch_to, dec_dims)
         need_calib = self.precision == "int8" and self._qparams is None
         need_front = self._bf16_front_auto_pending()
         if need_calib or need_front:
-            # Up to 32 images: the box-F1 self-check needs at least 16 to
-            # resolve tail improvements (quantize_autotail).
-            k = min(32, n)
+            # Up to 32 real images: the box-F1 self-check needs at least 16
+            # to resolve tail improvements (quantize_autotail).
+            k = min(32, n_real)
             with torch.inference_mode():
-                lb = letterbox_device_matmul(s[:k], row_ms[:k], col_ms[:k])
+                lb = letterbox_device_matmul(to_unit_f32(staged_dev[:k]),
+                                             row_ms[:k], col_ms[:k])
             if need_calib:
                 self.calibrate_int8(lb)
             if need_front:
                 self.autoselect_bf16_front(lb)
-        with torch.inference_mode():
-            lb = letterbox_device_matmul(s, row_ms, col_ms)
-        cands, counts = self._detect(lb)
-        out = (cands.cpu().numpy(), counts.cpu().numpy())
+        self._ready_to_serve()
+        cands, counts = self.programs.run(self._fused_key(staged_dev, uniform),
+                                          self._fused_program, staged_dev, row_ms, col_ms)
+        out = (cands[:n_real].cpu().numpy(), counts[:n_real].cpu().numpy())
         return out + (staged_dev,) if return_staged else out
+
+    def _fused_inputs(self, staged, geoms: list, pad_batch_to: int | None, dec_dims):
+        """The fused program's inputs for a staged chunk of n >= 1 images:
+        (staged on the device, padded to the bucket and to pad_batch_to,
+        row_ms, col_ms, uniform); uniform = one geometry, whose matrix pair
+        (leading dim 1) broadcasts over the batch."""
+        n_real = staged.shape[0]
+        staged_dev = torch.as_tensor(staged, device=self.device)
+        bucket = _stage_bucket()
+        h, w = int(staged_dev.shape[1]), int(staged_dev.shape[2])
+        max_h, max_w = -(-h // bucket) * bucket, -(-w // bucket) * bucket
+        pad_b = max(pad_batch_to or 0, n_real)
+        if (max_h, max_w) != (h, w) or pad_b != n_real:
+            padded = staged_dev.new_zeros((pad_b, max_h, max_w, staged_dev.shape[3]))
+            padded[:n_real, :h, :w] = staged_dev
+            staged_dev = padded
+            geoms = list(geoms) + [geoms[-1]] * (pad_b - n_real)
+            if dec_dims is not None:
+                dec_dims = np.concatenate(
+                    [dec_dims, np.repeat(dec_dims[-1:], pad_b - n_real, 0)])
+        decs = [None] * pad_b if dec_dims is None else list(dec_dims)
+        mats = [self._matrices(g, max_h, max_w, d) for g, d in zip(geoms, decs)]
+        uniform = all(m is mats[0] for m in mats)
+        if uniform:
+            return staged_dev, mats[0][0][None], mats[0][1][None], True
+        return (staged_dev, torch.stack([m[0] for m in mats]),
+                torch.stack([m[1] for m in mats]), False)
+
+    def _fused_key(self, staged_dev: torch.Tensor, uniform: bool) -> tuple:
+        """The fused program's key (the JAX `_fused_cache` key, with the
+        precision and `_program_variant`)."""
+        return ("fused", self.precision, self._program_variant(), tuple(staged_dev.shape),
+                str(staged_dev.dtype), uniform)
+
+    def _fused_program(self, staged: torch.Tensor, row_ms: torch.Tensor,
+                       col_ms: torch.Tensor):
+        """The program `detect_batch_fused` serves: the letterbox matmuls,
+        then `_detect_program` (the JAX `_fused_cache` program)."""
+        return self._detect_program(
+            letterbox_device_matmul(to_unit_f32(staged), row_ms, col_ms))
 
     def _iter_detection_chunks(self, file_names: list[str], batch_size: int,
                                device_letterbox: bool | None = None,
@@ -590,9 +693,10 @@ class FaceDetectorPipeline:
             staged_dev = None
             if kind == "staged" and yield_staged and dec_dims is None:
                 cands, counts, staged_dev = self.detect_batch_fused(
-                    batch, geoms, return_staged=True)
+                    batch, geoms, pad_batch_to=batch_size, return_staged=True)
             elif kind == "staged":
-                cands, counts = self.detect_batch_fused(batch, geoms, dec_dims=dec_dims)
+                cands, counts = self.detect_batch_fused(
+                    batch, geoms, pad_batch_to=batch_size, dec_dims=dec_dims)
             else:
                 cands, counts = self.detect_batch(batch)
             ub = unletterbox_boxes_chunk(cands, geoms)

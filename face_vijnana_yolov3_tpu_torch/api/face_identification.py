@@ -21,10 +21,21 @@ and `device_roi` (conf.device_roi or FVY_DEVICE_ROI=1: the crops as two
 matmuls against the staged original, ops/roi.py, reusing the detector's
 staging upload when its device letterbox ran).
 
-Differences from the JAX package: eager PyTorch has no per-shape compile,
-so embeds run in chunks of at most 64 images without the power-of-two
-bucket padding, and the device ROI path without the padded sub-batches
-(tests/test_torch_identification.py shows the rows unchanged).
+Serving replays captured programs (core/programs.py), as the JAX package
+serves through jitted ones, one program per size of `_EMBED_BUCKETS`. The
+JAX package pads a batch up to the next bucket; the port splits it into
+bucket sizes instead (`_bucket_split`: 64s, then the binary digits of the
+rest, 17 → 16 + 1) and replays each piece's program: on the card the pad
+crops cost more than the extra pieces, and programs at every exact count
+would each keep their own transient memory in the graphs' pool (PERF.md
+§6). A device-ROI chunk replays, for each piece of its ROIs, one graph of
+the windowed crops, the embed and the registry match, keyed as the JAX
+`_roi_fused_fn` with the piece's size for its bucket and without n_sub
+(on the staged batch dimension, so the detector's padded short last chunk
+reuses it). int8 calibrates eagerly, before the first capture.
+`_calibrate_int8`, `train` and any `model.load_state_dict` drop every
+program. `_embed_program` stays the eager embed that core/export.py
+traces.
 TripletDataset's generators are seeded from the pipeline's `seed` (None:
 fresh entropy, as the JAX package's unseeded ones). Refused:
 `bf16_front_mode="int8"` (measured harmful in the JAX package; ROADMAP.md,
@@ -39,6 +50,7 @@ checkpoint name with the port's suffix.
 
 from __future__ import annotations
 
+import functools
 import glob
 import os
 import pickle
@@ -61,6 +73,7 @@ from face_vijnana_yolov3_tpu_torch.core.checkpoints import (
     load_checkpoint,
     load_opt_state,
 )
+from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache, watch_weights
 from face_vijnana_yolov3_tpu_torch.models import quant
 from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel, init_dense1
 from face_vijnana_yolov3_tpu_torch.ops import roi
@@ -73,7 +86,16 @@ DEBUG = True
 RESOURCE_TYPE_UCCS = "uccs"
 RESOURCE_TYPE_VGGFACE2 = "vggface2"
 
-EMBED_CHUNK = 64  # images per embed call (the JAX package's largest bucket)
+_EMBED_BUCKETS = (1, 2, 4, 8, 16, 32, 64)  # embed batch sizes, one program each
+
+
+def _bucket_split(n: int) -> list[int]:
+    """n rows as `_EMBED_BUCKETS` sizes, nothing padded: 64s, then the
+    binary digits of the rest, largest first (81 → [64, 16, 1])."""
+    big = _EMBED_BUCKETS[-1]
+    return [big] * (n // big) + [b for b in reversed(_EMBED_BUCKETS) if n % big & b]
+
+
 # The reconstruction decoder's checkpoint (the JAX package's
 # "face_vijnana_recon_tpu", as a .pt), in the working directory.
 RECON_CHECKPOINT = "face_vijnana_recon_tpu.pt"
@@ -169,6 +191,10 @@ class FaceIdentifierPipeline:
             sd = identifier_params_from_jax(*self.model.init_params(1))
         self.model.load_state_dict(sd)
         self.model.eval()
+        # The captured embed and ROI-chunk programs; new weights make every
+        # one stale.
+        self.programs = ProgramCache(self.device)
+        watch_weights(self.model, self)
 
         # The nested full detector, as the reference's FaceIdentifier.__init__.
         self.fd = FaceDetectorPipeline(self.fd_conf, precision=precision,
@@ -177,6 +203,12 @@ class FaceIdentifierPipeline:
         self._q_embed: dict | None = None  # int8: calibrated on the first embed
 
     # -------------------------------------------------------------- embedding
+
+    def _weights_changed(self):
+        """After `model.load_state_dict`: the folded parameters and every
+        captured program read the old weights."""
+        self._folded = None
+        self.programs.invalidate()
 
     def _folded_params(self) -> dict:
         if self._folded is None:
@@ -192,12 +224,28 @@ class FaceIdentifierPipeline:
                 self._folded_params(), images[:INT8_CALIB_IMAGES], percentile=pct,
                 bias_correct=bool(getattr(self.conf, "int8_bias_correct", False))),
             self.device)
+        self.programs.invalidate()
+
+    def _ready_to_serve(self):
+        """Raise before a capture when int8 is uncalibrated; fold the bf16
+        parameters outside the program, which must not allocate them."""
+        if self.precision == "int8" and self._q_embed is None:
+            raise RuntimeError("int8 precision requires calibration before embed")
+        if self.precision == "bfloat16":
+            self._folded_params()
 
     @torch.inference_mode()
     def _embed_tensor(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, 3) f32 on the device → (B, D) f32 on the device, in
-        this pipeline's precision (int8 must be calibrated)."""
-        return self._embed_program(x)
+        """(B, S, S, 3) f32 on the device, B >= 1 → (B, D) f32 on the
+        device, in this pipeline's precision (int8 must be calibrated): the
+        pieces of `_bucket_split(B)`, each through its bucket's program
+        (the JAX `_embed_fn`, which pads to the bucket instead)."""
+        self._ready_to_serve()
+        out, s = [], 0
+        for b in _bucket_split(x.shape[0]):
+            out.append(self.programs.run(("embed", b), self._embed_program, x[s:s + b]))
+            s += b
+        return torch.cat(out)
 
     def _embed_program(self, x: torch.Tensor) -> torch.Tensor:
         """The embed `_embed_tensor` runs, outside inference mode (the JAX
@@ -215,15 +263,14 @@ class FaceIdentifierPipeline:
 
     def embed_device(self, images) -> torch.Tensor:
         """fid extractor: (B, S, S, 3) float images (numpy, or a tensor) →
-        (B, D) embeddings on the device, in chunks of EMBED_CHUNK.
+        (B, D) embeddings on the device, in bucket pieces (`_embed_tensor`).
         precision='int8' calibrates on the first call's first 16 images."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         if self.precision == "int8" and self._q_embed is None:
             self._calibrate_int8(x)
         if x.shape[0] == 0:
             return torch.zeros((0, self.model.dense1_dim), device=self.device)
-        return torch.cat([self._embed_tensor(x[s:s + EMBED_CHUNK])
-                          for s in range(0, x.shape[0], EMBED_CHUNK)])
+        return self._embed_tensor(x)
 
     def embed(self, images) -> np.ndarray:
         """`embed_device` as host numpy (the subject DB's embed_fn)."""
@@ -287,10 +334,10 @@ class FaceIdentifierPipeline:
             fakequant=getattr(self.conf, "train_qat", False),
         )
         self.model.load_state_dict({**params, **state})
-        # New weights: the folded and int8 programs are stale (the next
-        # embed re-folds and re-calibrates).
-        self._folded = None
+        # New weights (load_state_dict above dropped the folded parameters
+        # and the programs): the next embed re-calibrates int8.
         self._q_embed = None
+        self.programs.invalidate()
         print("Save the model.")
         if keras_h5 and mesh_lib.is_main_process():
             from face_vijnana_yolov3_tpu_torch.core.keras_import import (
@@ -381,17 +428,18 @@ class FaceIdentifierPipeline:
 
     def _roi_plan(self, images: list, boxes_list: list, staged_dev=None):
         """The device crops of a detect chunk's boxes (face_identification.py:
-        480-543): (owners, crops_of), owners[r] = (image j, box k) of ROI r
-        for each box whose crop is non-empty, in order, and crops_of(slice)
-        → those ROIs' (n, S, S, 3) f32 letterboxed crops on the device, each
-        the two matmuls over a bucketed window of its image (ops/roi.py).
+        480-526): (owners, plan). owners[r] = (image j, box k) of ROI r for
+        each box whose crop is non-empty, in order; plan (None without
+        ROIs) holds the staged tensor on the device, each ROI's window
+        origin (n, 3) (image, y, x) and its tap tables (ops/roi.py), and
+        the bucketed window (wh, ww) every ROI takes of its image.
 
         staged_dev: the detect pass's (B, maxH, maxW, 3) device staging
         tensor (detect_batch_fused return_staged), so the originals upload
-        once; None stages the chunk here: uint8 when every image is, else
-        f32 divided by 255 on the host first (the device resize takes float
-        pixels as already in [0, 1], while the host path always divides the
-        raw crop by 255). The tap tables go up as one packed array.
+        once; None stages the chunk here, H/W rounded up to 128-multiples:
+        uint8 when every image is, else f32 divided by 255 on the host first
+        (the device resize takes float pixels as already in [0, 1], while
+        the host path always divides the raw crop by 255).
         """
         owners: list[tuple[int, int]] = []  # ROI → (image j, box k)
         wins: list[tuple[int, int, int, int]] = []
@@ -426,39 +474,71 @@ class FaceIdentifierPipeline:
         for r, ((j, _k), (y0, x0, _ch, _cw)) in enumerate(zip(owners, wins)):
             origins[r] = (j, min(y0, bh - wh), min(x0, bw - ww))
         taps = roi.stack_roi_taps(wins, self.image_size, origins[:, 1:])
-        packed = torch.from_numpy(roi.pack_roi_operands(origins, *taps)).to(self.device)
+        return owners, dict(staged=staged, origins=origins, taps=taps, window=(wh, ww))
+
+    def _roi_crops(self, plan: dict, sl: slice) -> torch.Tensor:
+        """The letterboxed crops of `plan`'s ROIs `sl`, (n, S, S, 3) f32 on
+        the device, computed eagerly (int8 calibration, checks)."""
+        taps = [torch.from_numpy(t[sl]).to(self.device) for t in plan["taps"]]
+        wh, ww = plan["window"]
+        with torch.inference_mode():
+            return roi.roi_letterbox_device_windowed(
+                plan["staged"], torch.from_numpy(plan["origins"][sl]).to(self.device),
+                *taps, window_h=wh, window_w=ww)
+
+    def _roi_program(self, window_h: int, window_w: int, staged: torch.Tensor,
+                     packed: torch.Tensor, reg: torch.Tensor):
+        """The program of one piece of an identify chunk (the JAX
+        `_roi_fused_fn`'s sub-batch): the windowed crops of the ROIs of
+        `packed` (n, F), their embed and the registry match; →
+        (best_idx, best_dist), each (n,)."""
         org, ri, rw, ci, cw = roi.unpack_roi_operands(packed, self.image_size)
+        crops = roi.roi_letterbox_device_windowed(
+            staged, org, ri, rw, ci, cw, window_h=window_h, window_w=window_w)
+        return match_embeddings(self._embed_program(crops), reg)
 
-        def crops_of(sl):
-            with torch.inference_mode():
-                return roi.roi_letterbox_device_windowed(
-                    staged, org[sl], ri[sl], rw[sl], ci[sl], cw[sl],
-                    window_h=wh, window_w=ww)
-
-        return owners, crops_of
+    def _roi_inputs(self, plan: dict, reg_dev) -> list[tuple]:
+        """[(key, program, staged, packed, reg)]: the identify programs of
+        a chunk's n ROIs, one per piece of `_bucket_split(n)` in ROI order,
+        nothing padded; the ROIs' operands go up packed, once. The key is
+        the JAX `_roi_fused_fn`'s (:422) without n_sub: (piece size, staged
+        batch, H, W, window, registry size, dtype). Keyed on the STAGED
+        batch dimension, not the image count: the detector pads its short
+        last chunk to batch_size, so that chunk reuses the programs."""
+        packed = torch.from_numpy(roi.pack_roi_operands(
+            plan["origins"], *plan["taps"])).to(self.device)
+        staged = plan["staged"]
+        reg = torch.as_tensor(reg_dev, dtype=torch.float32, device=self.device)
+        wh, ww = plan["window"]
+        fn = functools.partial(self._roi_program, wh, ww)
+        shape = tuple(int(d) for d in staged.shape[:3])
+        dtype = np.dtype(str(staged.dtype).removeprefix("torch.")).str
+        out, s = [], 0
+        for b in _bucket_split(packed.shape[0]):
+            key = ("roi", b) + shape + (wh, ww, int(reg.shape[0]), dtype)
+            out.append((key, fn, staged, packed[s:s + b], reg))
+            s += b
+        return out
 
     def _identify_chunk_device(self, images: list, boxes_list: list, subject_ids,
                                reg_dev, staged_dev=None):
         """Device crops for a whole detect chunk (face_identification.py:
-        451-597): the crops of `_roi_plan`, then the embed and the registry
-        match, in sub-batches of EMBED_CHUNK ROIs; the host work per box is
-        a tap table. int8 calibrates on the first 16 real crops. The host
-        path's semantics (the off-by-one window, the zero-size skip, the
-        sim_th gate) at float-rounding parity. Returns per-image row lists.
+        451-597): the ROIs of `_roi_plan` through the programs of
+        `_roi_inputs` (crops, embed and registry match), one per
+        piece of the ROI count; the host work per box is a tap table. int8
+        calibrates on the first 16 real crops, eagerly. The host path's
+        semantics (the off-by-one window, the zero-size skip, the sim_th
+        gate) at float-rounding parity. Returns per-image row lists.
         """
         out_rows: list[list] = [[] for _ in images]
-        owners, crops_of = self._roi_plan(images, boxes_list, staged_dev)
+        owners, plan = self._roi_plan(images, boxes_list, staged_dev)
         if not owners:
             return out_rows
         n = len(owners)
         if self.precision == "int8" and self._q_embed is None:
-            self._calibrate_int8(crops_of(slice(0, min(INT8_CALIB_IMAGES, n))))
-        idx, dist = [], []
-        for s in range(0, n, EMBED_CHUNK):
-            emb = self._embed_tensor(crops_of(slice(s, s + EMBED_CHUNK)))
-            i, d = match_embeddings(emb, reg_dev)
-            idx.append(i)
-            dist.append(d)
+            self._calibrate_int8(self._roi_crops(plan, slice(0, min(INT8_CALIB_IMAGES, n))))
+        self._ready_to_serve()
+        idx, dist = zip(*(self.programs.run(*p) for p in self._roi_inputs(plan, reg_dev)))
         best_idx = torch.cat(idx).cpu().numpy()
         best_dist = torch.cat(dist).cpu().numpy()
         for r, (j, k) in enumerate(owners):

@@ -50,6 +50,25 @@ NVCC_FLAGS = (
 )
 
 
+# The kernel wrappers (ops/*.py), each registered where it is defined. A
+# wrapper adds one to its `.launches` where it launches its kernel and
+# nowhere else; `.trace_names` are the substrings that name its kernels in
+# a profiler trace (the checks count the trace against the counters).
+LAUNCH_COUNTERS: list = []
+
+
+def counts_launches(*trace_names: str):
+    """Register a kernel wrapper: `fn.launches = 0` and `fn.trace_names`."""
+
+    def register(fn):
+        fn.launches = 0
+        fn.trace_names = trace_names
+        LAUNCH_COUNTERS.append(fn)
+        return fn
+
+    return register
+
+
 def direct_route() -> bool:
     """Whether a wrapper calls its implementation directly: always but
     while `torch.export` traces (the tensors are fake there and the op must

@@ -76,6 +76,14 @@ def letterbox_matrices(geom, max_h: int, max_w: int, image_size: int,
     return taps_to_matrix(ri, rw, max_h), taps_to_matrix(ci, cw, max_w)
 
 
+def to_unit_f32(x: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels → f32 * (1/255) (the JAX fused path's order); float
+    pixels are taken as already in [0, 1]."""
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) * (1.0 / 255.0)
+    return x.to(torch.float32)
+
+
 def letterbox_device_matmul(staged: torch.Tensor, row_ms: torch.Tensor,
                             col_ms: torch.Tensor) -> torch.Tensor:
     """Batched strict letterbox: staged (B, H, W, C) f32 + per-image matrices

@@ -14,8 +14,9 @@ The windowed form gathers each ROI's (window_h, window_w) window from the
 staged batch at a host-clamped origin, so the matmuls contract over about
 the crop's extent instead of the whole staged axes (the skipped columns are
 exact zeros; only the f32 summation order differs). The JAX function
-`lax.map`s padded sub-batches to bound its compile count; eager PyTorch has
-none to bound, so the caller splits ROIs by memory instead.
+`lax.map`s padded sub-batches to bound its compile count; the caller
+(api/face_identification.py) runs a chunk's ROIs in pieces of those
+bucket sizes, unpadded, each through a captured program.
 
 Numerics: the host reference path computes in float64 (uint8/255 → cv2
 f64 cubic); this path is f32, so parity is float-rounding-level.
@@ -28,7 +29,11 @@ import torch
 
 from face_vijnana_yolov3_tpu_torch.models.darknet import exact_f32
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_geometry
-from face_vijnana_yolov3_tpu_torch.ops.resize import cubic_taps, letterbox_device_matmul
+from face_vijnana_yolov3_tpu_torch.ops.resize import (
+    cubic_taps,
+    letterbox_device_matmul,
+    to_unit_f32,
+)
 
 
 def roi_window(l: int, t: int, r: int, b: int, src_h: int, src_w: int):
@@ -176,20 +181,13 @@ def _mat_from_taps(idx: torch.Tensor, w: torch.Tensor, in_size: int) -> torch.Te
     return m
 
 
-def _to_unit_f32(x: torch.Tensor) -> torch.Tensor:
-    """uint8 pixels → f32 * (1/255); float pixels are taken as already in [0, 1]."""
-    if x.dtype == torch.uint8:
-        return x.to(torch.float32) * (1.0 / 255.0)
-    return x.to(torch.float32)
-
-
 def roi_letterbox_device(image: torch.Tensor, row_idx: torch.Tensor, row_w: torch.Tensor,
                          col_idx: torch.Tensor, col_w: torch.Tensor) -> torch.Tensor:
     """All ROIs of one staged image → (R, S, S, C) f32 letterboxed crops
     (roi.py:131-164). image: (maxH, maxW, C) uint8 raw pixels (the /255
     fuses in) or f32 already in [0, 1]; the tap tables (R, S, 4) absolute,
     from `roi_letterbox_taps`."""
-    img = _to_unit_f32(image)
+    img = to_unit_f32(image)
     max_h, max_w = image.shape[0], image.shape[1]
     rm = _mat_from_taps(row_idx, row_w, max_h)
     cm = _mat_from_taps(col_idx, col_w, max_w)
@@ -216,7 +214,7 @@ def roi_letterbox_device_windowed(staged: torch.Tensor, origins: torch.Tensor,
     rows = org[:, 1:2] + torch.arange(window_h, device=staged.device)   # (R, wh)
     cols = org[:, 2:3] + torch.arange(window_w, device=staged.device)   # (R, ww)
     win = staged[org[:, 0, None, None], rows[:, :, None], cols[:, None, :]]
-    win = _to_unit_f32(win)                                             # (R, wh, ww, C)
+    win = to_unit_f32(win)                                             # (R, wh, ww, C)
     rm = _mat_from_taps(row_idx, row_w, window_h)
     cm = _mat_from_taps(col_idx, col_w, window_w)
     with exact_f32():

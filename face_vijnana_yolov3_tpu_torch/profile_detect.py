@@ -1,7 +1,7 @@
 """Where the card's time goes in the PyTorch port's detect_batch.
 
     python -m face_vijnana_yolov3_tpu_torch.profile_detect [--batch 32] [--iters 6]
-        [--precision float32|bfloat16|int8] [--front N] [--no-blocks]
+        [--precision float32|bfloat16|int8] [--front N] [--no-blocks] [--staged HxW]
 
 Runs `FaceDetectorPipeline.detect_batch` (seeded random weights, 416²; f32
 with TF32 off; bf16 with the first N graph segments in f32, N = --front,
@@ -10,7 +10,11 @@ residual blocks unless --no-blocks) on distinct random letterboxed batches
 under torch.profiler and prints: the kernels by self device time, the device
 time per category (the port's own kernels, library convolutions, elementwise
 passes, copies, the rest), and the device busy share = device time / wall
-time of the profiled window. Needs a CUDA card.
+time of the profiled window. With --staged HxW it runs `detect_batch_fused`
+instead, on distinct seeded uint8 frames of that size (one geometry, the
+camera case), letterboxed on the card. Either call replays its captured
+program (core/programs.py); the calls that capture stay outside the
+profiled window. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -53,12 +57,15 @@ def main() -> int:
                     help="bfloat16: graph segments kept f32 (conf.bf16_f32_front)")
     ap.add_argument("--no-blocks", action="store_true",
                     help="int8: run the residual blocks as two conv_int8 launches")
+    ap.add_argument("--staged", default=None, metavar="HxW",
+                    help="profile detect_batch_fused on uint8 frames of this size")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_detect: needs a CUDA card", file=sys.stderr)
         return 2
     from face_vijnana_yolov3_tpu_torch.api.config import FdConf
     from face_vijnana_yolov3_tpu_torch.api.face_detection import FaceDetectorPipeline
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_geometry
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -70,15 +77,25 @@ def main() -> int:
     conf.bf16_f32_front = args.front
     fd = FaceDetectorPipeline(conf, precision=args.precision, device="cuda")
     rng = np.random.default_rng(args.seed)
-    xs = [rng.uniform(size=(args.batch, 416, 416, 3)).astype(np.float32)
-          for _ in range(args.iters)]
+    if args.staged:
+        h, w = (int(v) for v in args.staged.split("x"))
+        xs = [rng.integers(0, 256, (args.batch, h, w, 3), dtype=np.uint8)
+              for _ in range(args.iters)]
+        geoms = [letterbox_geometry(h, w, 416)] * args.batch
+
+        def call(x):
+            return fd.detect_batch_fused(x, geoms)
+    else:
+        xs = [rng.uniform(size=(args.batch, 416, 416, 3)).astype(np.float32)
+              for _ in range(args.iters)]
+        call = fd.detect_batch
     for x in xs[:3]:
-        fd.detect_batch(x)
+        call(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x in xs:
-            fd.detect_batch(x)
+            call(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -91,7 +108,8 @@ def main() -> int:
         by_cat[c] = by_cat.get(c, 0.0) + e.self_device_time_total / 1e3
     print(f"card: {card}; {args.precision}"
           f"{' blocks off' if args.no_blocks else ''}"
-          f"{f' f32 front {args.front}' if args.precision == 'bfloat16' else ''}; "
+          f"{f' f32 front {args.front}' if args.precision == 'bfloat16' else ''}"
+          f"{f'; detect_batch_fused on {args.staged} uint8 frames' if args.staged else ''}; "
           f"batch {args.batch} x "
           f"{args.iters} distinct batches")
     for e in kernels[:15]:
@@ -101,7 +119,7 @@ def main() -> int:
         "card": card, "precision": args.precision,
         "fused_blocks": args.precision == "int8" and not args.no_blocks,
         "bf16_f32_front": args.front if args.precision == "bfloat16" else None,
-        "batch": args.batch, "iters": args.iters,
+        "batch": args.batch, "iters": args.iters, "staged": args.staged,
         "wall_ms_per_batch": wall_ms / args.iters,
         "device_ms_per_batch": device_ms / args.iters,
         "device_busy_share": device_ms / wall_ms,

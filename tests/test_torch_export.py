@@ -175,9 +175,10 @@ def test_export_bf16_resolves_a_pending_auto_guard(tmp_path):
 
 @pytest.mark.parametrize("with_registry", [True, False])
 def test_export_embedder(pipes, tmp_path, with_registry):
-    """crops → embeddings equal the live embed; with the registry, two
-    registry sizes through one artifact (R symbolic), best_idx and
-    best_dist equal match_embeddings'."""
+    """crops → embeddings equal the live embed program on the same batch
+    (`_embed_program`, which serving replays in bucket pieces); with the
+    registry, two registry sizes through one artifact (R symbolic),
+    best_idx and best_dist equal match_embeddings'."""
     from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
 
     fi = pipes["fi"]
@@ -186,7 +187,8 @@ def test_export_embedder(pipes, tmp_path, with_registry):
     assert header["kind"] == "face_embed" and header["with_registry"] is with_registry
     art = load_artifact(path)
     crops = _images(3, seed=4)
-    emb_live = fi.embed_device(crops)
+    with torch.inference_mode():
+        emb_live = fi._embed_program(torch.from_numpy(crops))
     if not with_registry:
         assert torch.equal(art(crops), emb_live)
         return

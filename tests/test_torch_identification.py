@@ -303,9 +303,10 @@ def test_reduced_precision_embeds_match_jax(fi, precision):
 
 
 def test_embed_chunks_and_pads_without_changing_rows(fi):
-    """Embeds above EMBED_CHUNK images run in chunks; a row's embedding
-    does not depend on the others in its call (the JAX package pads to
-    power-of-two buckets instead; its rows are unchanged by the padding)."""
+    """Embeds run in pieces of the bucket sizes (64s, then the binary
+    digits of the rest), where the JAX package pads to a power-of-two
+    bucket; a row's embedding does not depend on the others in its call,
+    on the piece it falls in or on the JAX padding."""
     pfi, jfi = fi["pfi"], fi["jfi"]
     x = np.random.default_rng(9).uniform(0, 1, (66, S, S, 3)).astype(np.float32)
     full = pfi.embed(x)
@@ -394,32 +395,39 @@ def test_refused_options_cite_the_roadmap(fi, tmp_path, monkeypatch):
 
 def test_detect_returns_and_yields_the_staged_upload(fi, monkeypatch):
     """detect_batch_fused(return_staged=True) returns the staging tensor it
-    read; _iter_detection_chunks(yield_staged=True) yields it on the device
-    letterbox path and None on the host-letterbox path (JAX
-    api/face_detection.py:690-866)."""
+    read, bucketed to 128-multiples as the JAX package's; _iter_detection_
+    chunks(yield_staged=True) yields it, padded to the batch size, on the
+    device letterbox path and None on the host-letterbox path (JAX
+    api/face_detection.py:543-866)."""
     fd = fi["pfi"].fd
     files = sorted(str(p) for p in (fi["root"] / "training").glob("*.jpg"))[:3]
     ims = [imread(f) for f in files]
     staged = np.stack(ims)
+    from face_vijnana_yolov3_tpu.ops.letterbox import letterbox_geometry as jax_geometry
     from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_geometry
 
     geoms = [letterbox_geometry(96, 96, S)] * 3
     c, n, st = fd.detect_batch_fused(staged, geoms, return_staged=True)
     c2, n2 = fd.detect_batch_fused(staged, geoms)
-    assert st.dtype == torch.uint8 and torch.equal(st, torch.from_numpy(staged))
+    *_, jst = fi["jfi"].fd.detect_batch_fused(staged, [jax_geometry(96, 96, S)] * 3,
+                                             return_staged=True)
+    assert st.dtype == torch.uint8 and st.shape == (3, 128, 128, 3)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(jst))
     np.testing.assert_array_equal(c, c2)
     monkeypatch.setenv("FVY_DEVICE_LETTERBOX", "1")
     monkeypatch.setattr("face_vijnana_yolov3_tpu_torch.data.native_loader.native_available",
                         lambda: False)
     (*_, st_dev), = fd._iter_detection_chunks(files, 4, yield_staged=True)
-    assert torch.equal(st_dev, torch.from_numpy(staged))
+    assert st_dev.shape == (4, 128, 128, 3)
+    assert torch.equal(st_dev[:3, :96, :96], torch.from_numpy(staged))
+    assert int(st_dev.sum()) == int(staged.astype(np.int64).sum())  # the pad is zeros
     (*_, none), = fd._iter_detection_chunks(files, 4)
     assert none is None
     monkeypatch.setenv("FVY_DEVICE_LETTERBOX", "0")
     (*_, host), = fd._iter_detection_chunks(files, 4, yield_staged=True)
     assert host is None
     rows = list(fd._iter_detections(files, 2, device_letterbox=True, yield_staged=True))
-    assert len(rows) == 3 and all(torch.equal(r[4], torch.from_numpy(im))
+    assert len(rows) == 3 and all(torch.equal(r[4][:96, :96], torch.from_numpy(im))
                                   for r, im in zip(rows, ims))
 
 
