@@ -135,6 +135,21 @@ which raises on failure (exit code != 0):
               equal the kernels a profiler trace of the replays names (B,
               A0 and A must move). Every serving call of the earlier
               phases replays captured programs as well.
+16. modes   — the two serving modes taken over last (MODES_*), in a fresh
+              process (`modes_phase_fresh`) on phase 14's checkpoint and val
+              set: distillation QAT (int8_qat_steps, blocks on; calibrated
+              on 32 letterboxed training images, then test mode on the val
+              JPEGs), PTQ int8, the int8 front guard (bf16_front_mode "int8")
+              at depths 2 and 1 and the f32 guard at 2 in test mode, the FI
+              bf16 embed with the int8 guard on 64 crops: the main path,
+              whose launch counts (B, A0 and A must move) go to
+              `launches_modes`; then the refined int8 trunk card vs CPU
+              (torch.equal), the fake-quant head vs the served one, head MSE
+              against the f32 teacher before and after QAT, the guard's
+              int8 front rows card vs CPU (torch.equal) and its head,
+              detect_batch ms at b32 beside the f32 guard, the FI embed card
+              vs CPU and img/s beside the plain bf16 embed, and held-out
+              AP50 of the four served CSVs (printed, not gated).
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -143,7 +158,9 @@ as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import contextlib
 import importlib.util
+import io
 import itertools
 import json
 import os
@@ -334,6 +351,27 @@ PROGRAM_SHORT = 3
 PROGRAM_ROI_BOXES = (4, 4, 4, 5)  # boxes on each frame: 17 crops, pieces of 16 and 1
 PROGRAM_REPS, PROGRAM_BUSY_REPS = 10, 5
 PROGRAM_BF16_BOX_TOL, PROGRAM_BF16_SCORE_TOL = 1.0, 1e-2
+# [modes]: the two serving modes the port took over last (phase 16), on phase
+# 14's checkpoint and val set: distillation QAT for MODES_QAT_STEPS steps
+# (calibrated on MODES_CALIB letterboxed training images, head MSE also on
+# MODES_HELD val images), the int8 front guard at MODES_DEPTHS, detect_batch
+# timed at MODES_TIMING_B, the FI embed of MODES_FI_CROPS crops. Card vs CPU
+# on MODES_CPU_B images (MODES_FI_CPU crops): the CPU runs the bf16 tail at
+# 416², which is slow there. The fake-quant head (f32 head conv on the
+# fake-quant trunk) vs the served int8 head (bf16 head conv on the int8
+# trunk): the bf16 head's rule INT8_HEAD_TOL, since the two trunks differ
+# only where an f32 sum passes 2^24: every fake-quant conv equal to its
+# exact sum wherever Σ|x|·|k| ≤ 2^24, and the trunks equal when no sum
+# passes it (scripts/qat_conv_exactness.py). The hybrid's head card vs CPU: the bf16 tail's rule BF16_HEAD_TOL;
+# its FI embed: the reduced-precision embed bound of
+# tests/test_torch_identification.py.
+MODES_QAT_STEPS = 30
+MODES_CALIB, MODES_HELD = 32, 32
+MODES_DEPTHS = (2, 1)
+MODES_TIMING_B = 32
+MODES_FI_CROPS = 64
+MODES_CPU_B, MODES_FI_CPU = 1, 4
+MODES_FI_TOL = 3e-2
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
@@ -3009,6 +3047,317 @@ def programs_phase_fresh(tmp: str) -> tuple[dict, dict]:
     return launches, rates
 
 
+def modes_phase(tmp, card, dev, rng):
+    """The two serving modes taken over last (phase 16, MODES_*), on phase
+    14's checkpoint (tmp/release/fd_ckpt_qat.pt) and val set.
+
+    The main path, its launch counts zeroed before and read after: (a)
+    FaceDetectorPipeline(precision="int8", int8_qat_steps, blocks on)
+    calibrates on MODES_CALIB letterboxed training images (distillation QAT,
+    then int8 at the frozen scales) and serves the val JPEGs in test mode;
+    a PTQ int8 pipeline (the sidecar's pinned tail) serves them too; (b)
+    precision="bfloat16" with bf16_front_mode="int8" at each of
+    MODES_DEPTHS, and the f32-guard bf16 at depth 2, serve them; (c) the FI
+    bf16 embed with fi_conf.bf16_front_mode="int8" of MODES_FI_CROPS crops.
+    Then the checks: the QAT int8 trunk card == CPU (torch.equal), the
+    fake-quant head vs the served head (INT8_HEAD_TOL), each fake-quant conv
+    exact wherever its sums stay below 2^24 and the fake-quant trunk equal
+    to the served one when none passes it, head MSE against the f32 teacher
+    before and after QAT; the hybrid's int8 front rows card ==
+    CPU, its head card vs CPU (BF16_HEAD_TOL), detect_batch ms at
+    MODES_TIMING_B beside the f32-guard bf16 at the same depth; the FI
+    hybrid embed card vs CPU (MODES_FI_TOL) and img/s beside the plain bf16
+    embed; held-out AP50 with bootstrap intervals of the four served CSVs
+    (printed, not gated). Returns (the launches of the main path, the
+    numbers)."""
+    import glob
+
+    from face_vijnana_yolov3_tpu_torch import kernels
+    from face_vijnana_yolov3_tpu_torch.api import face_detection as fdm
+    from face_vijnana_yolov3_tpu_torch.api import face_identification as fim
+    from face_vijnana_yolov3_tpu_torch.api.config import Conf, FdConf
+    from face_vijnana_yolov3_tpu_torch.evals.detection import map_sweep
+    from face_vijnana_yolov3_tpu_torch.models import qat, quant
+    from face_vijnana_yolov3_tpu_torch.models.detector import head_conv
+    from face_vijnana_yolov3_tpu_torch.ops import (  # noqa: F401  (register the wrappers)
+        block_int8,
+        conv_int8,
+        front_fused,
+        nms_sweep,
+    )
+    from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
+    from face_vijnana_yolov3_tpu_torch.scripts.qat_conv_exactness import conv_exactness
+    from face_vijnana_yolov3_tpu_torch.scripts.release_ap import bootstrap_ap50
+
+    fdm.DEBUG = fim.DEBUG = False
+    S = IMAGE_SIZE
+    work = os.path.join(tmp, "release")
+    valdir = os.path.join(work, "valset")
+    ckpt = os.path.join(work, "fd_ckpt_qat.pt")
+
+    def letterboxed(files):
+        return np.asarray([letterbox_host(imread(f) / 255, S, "cubic")[0] for f in files],
+                          np.float32)
+
+    x_cal = letterboxed(sorted(glob.glob(os.path.join(work, "tr_*.jpg")))[:MODES_CALIB])
+    x_held = letterboxed(sorted(glob.glob(os.path.join(valdir, "*.jpg")))[:MODES_HELD])
+
+    def conf(tag, **kw):
+        c = FdConf(test_path=valdir, model_loading=True, model_path=ckpt,
+                   output_file_path=os.path.join(work, f"modes_{tag}.csv"), **kw)
+        c.nn_arch.image_size = S
+        return c
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k.__name__: k.launches for k in kernels.LAUNCH_COUNTERS}
+
+    def moved(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    for k in kernels.LAUNCH_COUNTERS:
+        k.launches = 0
+    rec: dict = {}
+    # (a) distillation QAT: calibrate_int8 runs qat.distill_folded, timed here.
+    distilled = {}
+    real_distill = qat.distill_folded
+
+    def timed_distill(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_distill(*a, **kw)
+        torch.cuda.synchronize()
+        distilled.update(s=time.perf_counter() - t0, folded=out[0])
+        return out
+
+    qat.distill_folded = timed_distill
+    try:
+        fq = fdm.FaceDetectorPipeline(
+            conf("qat", int8_qat_steps=MODES_QAT_STEPS, int8_pallas_blocks=True),
+            precision="int8", device=dev)
+        t0 = time.perf_counter()
+        fq.calibrate_int8(x_cal)
+        calib_s = time.perf_counter() - t0
+    finally:
+        qat.distill_folded = real_distill
+    a0 = counts()
+    fq.test()
+    mv = {"qat": moved(a0)}
+    ptq = fdm.FaceDetectorPipeline(conf("ptq", int8_pallas_blocks=True), precision="int8",
+                                   device=dev)
+    ptq.test()
+    # (b) the int8 front guard, and the f32-guard bf16 beside it.
+    hyb, plain = {}, {}
+    for depth in MODES_DEPTHS:
+        a0 = counts()
+        hyb[depth] = fdm.FaceDetectorPipeline(
+            conf(f"hybrid{depth}", bf16_front_mode="int8", bf16_f32_front=depth),
+            precision="bfloat16", device=dev)
+        hyb[depth].test()
+        mv[f"hybrid{depth}"] = moved(a0)
+    plain[2] = fdm.FaceDetectorPipeline(conf("bf16_guard2", bf16_f32_front=2),
+                                        precision="bfloat16", device=dev)
+    plain[2].test()
+    # (c) the FI embed with the int8 guard.
+    def fi_conf(mode):
+        c = Conf()
+        for sub in (c.fi_conf, c.fd_conf):
+            sub.weights_path = os.path.join(tmp, "missing.weights")
+            sub.nn_arch.image_size = S
+        c.fi_conf.bf16_front_mode = mode
+        return c
+
+    crops = rng.uniform(size=(MODES_FI_CROPS, S, S, 3)).astype(np.float32)
+    a0 = counts()
+    fi = fim.FaceIdentifierPipeline(fi_conf("int8"), precision="bfloat16", device=dev,
+                                    seed=SEED)
+    emb = fi.embed(crops)
+    mv["fi_hybrid"] = moved(a0)
+    launches = counts()
+    print(f"[modes] main path on {card}: QAT int8 ({MODES_QAT_STEPS} steps), PTQ int8, "
+          f"the int8 guard at depths {MODES_DEPTHS} and the f32 guard at 2 served the "
+          f"{len(os.listdir(valdir)) - 1} val JPEGs; the FI hybrid embedded "
+          f"{MODES_FI_CROPS} crops; launches {launches}; by run {mv}")
+    if min(launches[k] for k in ("nms_sweep", "conv_int8", "block_int8")) == 0:
+        raise AssertionError(f"[modes] the main path skipped a kernel: {launches}")
+    for depth in MODES_DEPTHS:
+        if min(mv[f"hybrid{depth}"][k] for k in ("nms_sweep", "conv_int8")) == 0:
+            raise AssertionError(f"[modes] the int8 guard at depth {depth} skipped A0 or B")
+    if mv["fi_hybrid"]["conv_int8"] == 0 or mv["qat"]["block_int8"] == 0:
+        raise AssertionError(f"[modes] a run skipped its int8 kernel: {mv}")
+
+    # (a) checks: the refined int8 trunk card == CPU; fake-quant vs served head;
+    # head MSE against the f32 teacher before and after the distillation.
+    ops = fq.model.ops
+    q = fq._qparams
+    q_cpu = quant.to_device(q, "cpu")
+    x_chk = torch.from_numpy(x_held[:MODES_CPU_B])
+    with torch.inference_mode():
+        t_card = quant.apply_graph_quant(q, x_chk.to(dev), ops, fused_blocks=True)["trunk"]
+        t_cpu = quant.apply_graph_quant(q_cpu, x_chk, ops, fused_blocks=True)["trunk"]
+    trunk_equal = torch.equal(t_card.cpu(), t_cpu)
+    folded0 = fq.model.fold()
+    q0 = quant.to_device(quant.quantize_folded(folded0, None, ops,
+                                               act_scales=q["act_scales"]), dev)
+    mse, fq_err, fq_trunk_equal = {}, 0.0, []
+    with torch.inference_mode():
+        for name, x in (("calibration", x_cal), ("held-out", x_held)):
+            vals = {"before": [], "after": []}
+            for s0 in range(0, len(x), 8):
+                xb = torch.from_numpy(x[s0:s0 + 8]).to(dev)
+                teacher = fq.model.apply_folded(folded0, xb, compute_dtype=torch.float32)
+                served = fq.model.apply_quant(q, xb, fused_blocks=True)
+                vals["before"].append(torch.square(
+                    fq.model.apply_quant(q0, xb, fused_blocks=True) - teacher).sum())
+                vals["after"].append(torch.square(served - teacher).sum())
+                if name == "held-out" and s0 == 0:
+                    fq_out = qat.apply_graph_fakequant(distilled["folded"], xb, ops,
+                                                       q["act_scales"])["trunk"]
+                    fq_head = head_conv(fq_out, distilled["folded"]["head"], torch.float32)
+                    fq_err = float((fq_head - served).abs().max() / served.abs().max())
+                    s_trunk = quant.apply_graph_quant(q, xb, ops, fused_blocks=True)["trunk"]
+                    fq_trunk_equal = float((fq_out == s_trunk).float().mean())
+                    fq_sums = conv_exactness(distilled["folded"], xb, ops, q["act_scales"])
+            n_el = x.shape[0] * teacher[0].numel()
+            mse[name] = {k: float(sum(v).item()) / n_el for k, v in vals.items()}
+    losses = fq.int8_qat_losses
+    print(f"[modes] distillation QAT on {card}: {MODES_QAT_STEPS} steps (lr "
+          f"{fq.conf.int8_qat_lr}, tail {fq.conf.int8_qat_tail} blocks) in "
+          f"{distilled['s']:.2f} s (calibrate_int8 {calib_s:.2f} s, {MODES_CALIB} images); "
+          f"loss first {losses[0]:.6g} last {losses[-1]:.6g}; head MSE vs the f32 teacher "
+          + "; ".join(f"{k}: before {v['before']:.6g} after {v['after']:.6g}"
+                      for k, v in mse.items())
+          + f"; refined int8 trunk card vs CPU torch.equal {trunk_equal}; fake-quant head "
+          f"vs served head max |diff| / max |head| {fq_err:.4g} (tol {INT8_HEAD_TOL}), "
+          f"fake-quant trunk equal to the served one on {fq_trunk_equal:.6f} of its "
+          f"elements; its {fq_sums['convs']} convs differ from their exact sums on "
+          f"{fq_sums['differ_within']} elements where Σ|x|·|k| ≤ 2^24 and "
+          f"{fq_sums['differ_beyond']} where it is larger ({fq_sums['beyond']} such of "
+          f"{fq_sums['elements']})")
+    if not trunk_equal:
+        raise AssertionError("[modes] the refined int8 trunk differs card vs CPU")
+    if not fq_err <= INT8_HEAD_TOL:
+        raise AssertionError("[modes] the fake-quant head disagrees with the served head")
+    if fq_sums["differ_within"]:
+        raise AssertionError("[modes] a fake-quant conv is inexact below 2^24")
+    if fq_sums["differ_beyond"] == 0 and fq_trunk_equal != 1.0:
+        raise AssertionError("[modes] the fake-quant trunk differs from the served one "
+                             "with every conv exact")
+    rec.update(qat_distill_s=distilled["s"], qat_calibrate_s=calib_s,
+               qat_loss=(losses[0], losses[-1]), qat_head_mse=mse, qat_fq_head_err=fq_err,
+               qat_fq_trunk_equal=fq_trunk_equal, qat_fq_sums=fq_sums)
+    del distilled, q0, folded0
+
+    # (b) checks: front rows card == CPU, heads card vs CPU, detect_batch ms.
+    cpu_model = fdm.FaceDetectorModel(image_size=S, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in fq.model.state_dict().items()})
+    x32 = [rng.uniform(size=(MODES_TIMING_B, S, S, 3)).astype(np.float32) for _ in range(2)]
+    for depth in MODES_DEPTHS:
+        fd = hyb[depth]
+        qh = fd._qparams
+        cut = qh["tail_start"]
+        front_ops = list(ops[:cut]) + [("output", "__cut")]
+        qf = {k: v for k, v in qh.items() if k not in ("tail_start", "tail")}
+        with torch.inference_mode():
+            r_card = quant.apply_graph_quant(qf, x_chk.to(dev), front_ops)["__cut"].cpu()
+            r_cpu = quant.apply_graph_quant(quant.to_device(qf, "cpu"), x_chk,
+                                            front_ops)["__cut"]
+            h_card = fd.model.apply_quant(qh, x_chk.to(dev)).cpu()
+            h_cpu = cpu_model.apply_quant(quant.to_device(qh, "cpu"), x_chk)
+        h_err = float((h_card - h_cpu).abs().max() / h_cpu.abs().max())
+        if depth not in plain:
+            plain[depth] = fdm.FaceDetectorPipeline(conf(f"bf16_guard{depth}",
+                                                         bf16_f32_front=depth),
+                                                    precision="bfloat16", device=dev)
+        ms = {}
+        for label, pipe in (("int8 guard", fd), ("f32 guard", plain[depth])):
+            nxt = itertools.cycle(x32).__next__
+            ms[label] = cuda_ms(lambda pipe=pipe, nxt=nxt: pipe.detect_batch(nxt()), 8,
+                                warmup=2)
+            rec[f"hybrid{depth}_{label.split()[0]}_detect_ms"] = float(np.median(ms[label]))
+        int8_convs = sorted(int(k[5:]) for k in qh if k.startswith("conv_"))
+        print(f"[modes] int8 front guard, depth {depth}, on {card}: tail_start {cut}, int8 "
+              f"convs {int8_convs}; front rows card vs CPU torch.equal "
+              f"{torch.equal(r_card, r_cpu)}; head card vs CPU max |diff| / max |head| "
+              f"{h_err:.4g} (tol {BF16_HEAD_TOL}); detect_batch b{MODES_TIMING_B}: int8 "
+              f"guard {quartiles(ms['int8 guard'])}, f32 guard {quartiles(ms['f32 guard'])}")
+        if not torch.equal(r_card, r_cpu) or not h_err <= BF16_HEAD_TOL:
+            raise AssertionError(f"[modes] the int8 guard at depth {depth} disagrees card "
+                                 "vs CPU")
+        rec[f"hybrid{depth}_head_err"] = h_err
+    del x32, cpu_model
+
+    # (c) checks: the FI hybrid embed card vs CPU on the card's qparams; img/s.
+    cpu_fi = fim.FaceIdentifierPipeline(fi_conf("int8"), precision="bfloat16",
+                                        device="cpu", seed=SEED)
+    cpu_fi._q_embed = quant.to_device(fi._q_embed, "cpu")
+    e_err = float(np.abs(cpu_fi.embed(crops[:MODES_FI_CPU]) - emb[:MODES_FI_CPU]).max())
+    fi_plain = fim.FaceIdentifierPipeline(fi_conf("f32"), precision="bfloat16", device=dev,
+                                          seed=SEED)
+    crops_dev = torch.from_numpy(crops).to(dev)
+    emb_ms = {label: cuda_ms(lambda p=p: p.embed_device(crops_dev), 8, warmup=2)
+              for label, p in (("int8 guard", fi), ("f32 guard", fi_plain))}
+    img_s = {k: MODES_FI_CROPS / (float(np.median(v)) / 1e3) for k, v in emb_ms.items()}
+    print(f"[modes] FI bf16 embed with the int8 guard (tail_start "
+          f"{fi._q_embed['tail_start']}) on {card}: {MODES_FI_CPU} of {MODES_FI_CROPS} rows "
+          f"card vs CPU max |diff| {e_err:.4g} (tol {MODES_FI_TOL}); embed of "
+          f"{MODES_FI_CROPS} crops: int8 guard {img_s['int8 guard']:.1f} img/s, f32 guard "
+          f"{img_s['f32 guard']:.1f} img/s")
+    if not e_err <= MODES_FI_TOL:
+        raise AssertionError("[modes] the FI hybrid embed disagrees card vs CPU")
+    rec.update(fi_embed_err=e_err, fi_embed_img_s=img_s)
+    del fi, cpu_fi, fi_plain, crops_dev
+
+    # (d) held-out AP of the four served CSVs.
+    gt = os.path.join(valdir, "validation.csv")
+    aps = {}
+    for tag in ("qat", "ptq", "hybrid2", "bf16_guard2"):
+        sol = os.path.join(work, f"modes_{tag}.csv")
+        row = {"rows": sum(1 for _ in open(sol))}
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):  # its per-IoU lines
+                row["ap50"] = float(map_sweep(gt, sol, out_h5=None)[2][0])
+            row["ci95"] = bootstrap_ap50(gt, sol, RELEASE_RESAMPLES)
+        except ValueError as e:  # nothing to score: no AP, and the reason
+            if "to score" not in str(e):
+                raise
+            row.update(ap50=None, unscored=("no detections to score" if "empty" in str(e)
+                                            else "no detection overlaps a face"))
+        aps[tag] = row
+
+    def ap_text(v):
+        if v["ap50"] is None:
+            return f"AP50 none ({v['unscored']}, {v['rows']} rows)"
+        return (f"AP50 {v['ap50']:.4f} (95 % CI {v['ci95'][0]:.4f}-{v['ci95'][1]:.4f}, "
+                f"{v['rows']} rows)")
+
+    print(f"[modes] held-out AP50 on phase 14's checkpoint (its reduced recipe ends near "
+          f"AP 0: these rows check bookkeeping only, not accuracy): "
+          + "; ".join(f"{k} {ap_text(v)}" for k, v in aps.items())
+          + f"; PTQ tail {ptq.int8_tail_chosen}")
+    rec["aps"] = aps
+    del fq, ptq, hyb, plain
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def modes_phase_fresh(tmp: str) -> tuple[dict, dict]:
+    """Phase 16 in a fresh process, as phase 15: its lines passed through;
+    returns (the launches of its main path, its numbers)."""
+    out = os.path.join(tmp, "modes_phase.json")
+    code = ("import json, numpy as np, torch, chip_smoke as cs; "
+            "from face_vijnana_yolov3_tpu_torch import kernels; kernels.build(); "
+            f"r = cs.modes_phase({tmp!r}, cs.nvidia_smi(), torch.device(cs.DEVICE), "
+            f"np.random.default_rng(cs.SEED + 16)); json.dump(r, open({out!r}, 'w'))")
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, "-c", code], timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"[modes] the fresh process failed (exit {proc.returncode})")
+    with open(out) as f:
+        launches, rates = json.load(f)
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -3302,7 +3651,11 @@ def main() -> int:
         t_programs = time.perf_counter()
         programs_launches, programs_rates = programs_phase_fresh(tmp)
         print(f"[programs] done at {time.perf_counter() - t_start:.0f} s (phase "
-              f"{time.perf_counter() - t_programs:.0f} s); total run "
+              f"{time.perf_counter() - t_programs:.0f} s)")
+        t_modes = time.perf_counter()
+        modes_launches, modes_rates = modes_phase_fresh(tmp)
+        print(f"[modes] done at {time.perf_counter() - t_start:.0f} s (phase "
+              f"{time.perf_counter() - t_modes:.0f} s); total run "
               f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
@@ -3323,6 +3676,7 @@ def main() -> int:
         "launches_deploy": deploy_launches["nms_sweep"],
         "launches_release": release_launches["nms_sweep"],
         "launches_programs": programs_launches.get("nms_sweep", 0),
+        "launches_modes": modes_launches.get("nms_sweep", 0),
         "events_ms": nms["events_ms"],
         "ms_coco_80x256": coco_rates["nms_ms_80x256"],
         "plain_ms_coco_80x256": coco_rates["nms_plain_ms_80x256"],
@@ -3352,6 +3706,7 @@ def main() -> int:
             "launches_deploy": deploy_launches.get(name, 0),
             "launches_release": release_launches[name],
             "launches_programs": programs_launches.get(name, 0),
+            "launches_modes": modes_launches.get(name, 0),
         })
         if name == "fused_front":
             kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
@@ -3368,6 +3723,7 @@ def main() -> int:
     print(json.dumps({"deploy": deploy_rates, "deploy_launches": deploy_launches}))
     print(json.dumps({"release": release_rates, "release_launches": release_launches}))
     print(json.dumps({"programs": programs_rates, "programs_launches": programs_launches}))
+    print(json.dumps({"modes": modes_rates, "modes_launches": modes_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,12 @@ stages 3-5 through csrc/block_int8.cu) with a bf16 head.
 shallowest depth whose detections match the folded f32 head's, probed on
 the first batch by `autoselect_bf16_front`). Like the JAX pipeline, it
 serves the stock front; the fused front kernel (ops/front_fused.py) is
-reached through `apply_graph_folded_front`.
+reached through `apply_graph_folded_front`. With `bf16_front_mode="int8"`
+the guard segments run calibrated int8 instead (csrc/conv_int8.cu) and the
+rest folded bf16, through the int8 program's bf16 tail; such a pipeline
+calibrates on its first batch as int8 does. `int8_qat_steps > 0` refines
+the folded kernels by distillation QAT (models/qat.py) on the calibration
+images before they are quantized against the frozen scales.
 
 Weights: a `.pt` checkpoint (model_loading), the reference's Keras h5
 (`model_path` ending in .h5/.hd5, core/keras_import.py), the cached trunk
@@ -55,10 +60,6 @@ are returned. `calibrate_int8`, `autoselect_bf16_front`,
 the addresses of the weights it was captured with. `_detect_program` stays
 the eager function: core/export.py traces it, and the tests hold the
 graphs to it.
-
-Not carried: distillation QAT (`int8_qat_steps`) and `bf16_front_mode="int8"`, both
-measured harmful in the JAX package (ROADMAP.md, code the port should not
-carry).
 """
 
 from __future__ import annotations
@@ -142,18 +143,7 @@ class FaceDetectorPipeline:
 
     def __init__(self, conf: FdConf, *, precision: str = "float32",
                  device: torch.device | str | None = None):
-        if getattr(conf, "bf16_front_mode", "f32") == "int8":
-            raise NotImplementedError(
-                "bf16_front_mode='int8' is not carried into the port: it "
-                "collapses AP50 in the JAX package (ROADMAP.md, code the "
-                "port should not carry)")
-        if precision == "int8":
-            if getattr(conf, "int8_qat_steps", 0):
-                raise NotImplementedError(
-                    "int8_qat_steps > 0: distillation QAT is not carried into "
-                    "the port: it measured below every PTQ row in the JAX "
-                    "package (ROADMAP.md, code the port should not carry)")
-        elif precision not in ("float32", "bfloat16"):
+        if precision not in ("float32", "bfloat16", "int8"):
             raise NotImplementedError(
                 f"precision={precision!r}: the port serves float32, bfloat16 "
                 "and int8, the JAX package's serving precisions (ROADMAP.md "
@@ -243,13 +233,29 @@ class FaceDetectorPipeline:
 
     # -------------------------------------------------------------- int8
 
+    @property
+    def _hybrid_front(self) -> bool:
+        """bfloat16 serving with the int8 front guard (conf.bf16_front_mode
+        == "int8"): calibrates like int8, on the first detect batch."""
+        return (self.precision == "bfloat16"
+                and getattr(self.conf, "bf16_front_mode", "f32") == "int8")
+
+    def _needs_calibration(self) -> bool:
+        return (self.precision == "int8" or self._hybrid_front) and self._qparams is None
+
     @torch.inference_mode()
     def calibrate_int8(self, images, percentile=None):
         """Calibrate int8 serving on a representative letterboxed batch
         (api/face_detection.py:153-289 of the JAX package).
 
         Folds conv+BN, calibrates per-channel scales on the first 16 images
-        and quantizes the weights (models/quant.py). Unless
+        and quantizes the weights (models/quant.py). A hybrid-front bf16
+        pipeline quantizes only its guard segments: everything from block
+        `front` on (front = max(1, the guard depth)) is the program's folded
+        bf16 tail. With conf.int8_qat_steps > 0 the folded kernels are first
+        refined by distillation QAT (models/qat.distill_folded) on all of
+        `images` against the f32 head, and then quantized with the scales
+        calibrated before it, bias correction off. Otherwise, unless
         conf.int8_bf16_tail or conf.int8_bf16_ops fix the configuration (or
         conf.int8_tail_auto is off), the serving tail is chosen strongest
         evidence first: the checkpoint's measured `int8_tail` pin, else full
@@ -262,9 +268,41 @@ class FaceDetectorPipeline:
         folded = self.model.fold()
         x = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor)
                             else images, dtype=torch.float32, device=self.device)
+        if self._hybrid_front:
+            n_blocks = sum(1 for op in self.model.ops if op[0] == "save")
+            front = max(1, self._bf16_front_depth() or 1)
+            self._qparams = quant.to_device(
+                self.model.quantize(folded, x[:16], percentile=percentile,
+                                    bf16_tail_blocks=n_blocks - (front - 1)),
+                self.device)
+            self.programs.invalidate()
+            return
         tail_cfg = getattr(self.conf, "int8_bf16_tail", 0)
         bf16_ops = tuple(getattr(self.conf, "int8_bf16_ops", ()) or ())
-        if not tail_cfg and not bf16_ops and getattr(self.conf, "int8_tail_auto", True):
+        qat_steps = getattr(self.conf, "int8_qat_steps", 0)
+        act_scales = None
+        if qat_steps and tail_cfg:
+            # The student fake-quantizes every position (models/qat.py has
+            # no tail cut): its kernels under a bf16 tail would deploy a
+            # program that was never the one trained.
+            raise ValueError(
+                "int8_qat_steps and int8_bf16_tail are mutually exclusive: "
+                "QAT trains against the full-int8 program, the bf16 tail "
+                "deploys a different one")
+        if qat_steps:
+            from face_vijnana_yolov3_tpu_torch.models import qat
+            from face_vijnana_yolov3_tpu_torch.models.detector import head_conv
+
+            act_scales = quant.calibrate_folded(folded, x[:16], self.model.ops,
+                                                percentile=percentile)
+            folded, self.int8_qat_losses = qat.distill_folded(
+                folded, x, self.model.ops, act_scales=act_scales,
+                head_fn=lambda outs, prm: head_conv(outs["trunk"], prm["head"],
+                                                    torch.float32),
+                steps=qat_steps, lr=getattr(self.conf, "int8_qat_lr", 1e-5),
+                tail_blocks=getattr(self.conf, "int8_qat_tail", 4))
+        if (not qat_steps and not tail_cfg and not bf16_ops
+                and getattr(self.conf, "int8_tail_auto", True)):
             if self._ckpt_int8_tail is not None:
                 tails = (int(self._ckpt_int8_tail),)
             elif self._ckpt_qat:
@@ -283,15 +321,15 @@ class FaceDetectorPipeline:
                       f"threshold — serving with bf16 tail {tail}")
             self.programs.invalidate()
             return
-        # Bias correction is off after distillation QAT (not carried here) and
-        # with bf16 islands (its walk models an all-int8 program), as in the
-        # JAX package.
-        bias_correct = (not getattr(self.conf, "int8_qat_steps", 0) and not bf16_ops
+        # Bias correction is off after distillation QAT (the refined kernels
+        # were trained against the uncorrected biases) and with bf16 islands
+        # (its walk models an all-int8 program), as in the JAX package.
+        bias_correct = (not qat_steps and not bf16_ops
                         and bool(getattr(self.conf, "int8_bias_correct", False)))
         self._qparams = quant.to_device(
             self.model.quantize(folded, x[:16], percentile=percentile,
-                                bf16_tail_blocks=tail_cfg, bf16_ops=bf16_ops,
-                                bias_correct=bias_correct),
+                                bf16_tail_blocks=tail_cfg, act_scales=act_scales,
+                                bf16_ops=bf16_ops, bias_correct=bias_correct),
             self.device)
         self.int8_tail_chosen = tail_cfg
         self.programs.invalidate()
@@ -372,27 +410,32 @@ class FaceDetectorPipeline:
         return depth, err
 
     def _bf16_front_auto_pending(self) -> bool:
-        return (self.precision == "bfloat16"
+        return (self.precision == "bfloat16" and not self._hybrid_front
                 and getattr(self.conf, "bf16_f32_front", 2) == "auto"
                 and not hasattr(self, "bf16_front_chosen"))
 
     # -------------------------------------------------------------- detect
 
     def _program_variant(self):
-        """What a program bakes in besides its shapes: the int8 blocks flag
-        or the bf16 guard depth (None at f32)."""
+        """What a program bakes in besides its shapes: the int8 blocks flag,
+        the bf16 guard depth, or ("int8-front", depth) for the int8 guard
+        (None at f32)."""
         if self.precision == "int8":
             return bool(getattr(self.conf, "int8_pallas_blocks", False))
+        if self._hybrid_front:
+            return ("int8-front", self._bf16_front_depth())
         if self.precision == "bfloat16":
             return self._bf16_front_depth()
         return None
 
     def _ready_to_serve(self):
-        """Raise before a capture when int8 is uncalibrated; fold the bf16
-        parameters outside the program, which must not allocate them."""
-        if self.precision == "int8" and self._qparams is None:
-            raise RuntimeError("int8 precision requires calibrate_int8() before detect")
-        if self.precision == "bfloat16":
+        """Raise before a capture when int8 (or the int8 guard) is
+        uncalibrated; fold the bf16 parameters outside the program, which
+        must not allocate them."""
+        if self._needs_calibration():
+            raise RuntimeError("int8 precision and bf16_front_mode='int8' require "
+                               "calibrate_int8() before detect")
+        if self.precision == "bfloat16" and not self._hybrid_front:
             self._folded_params()
 
     @torch.inference_mode()
@@ -407,14 +450,17 @@ class FaceDetectorPipeline:
         """The serving program `_detect` runs, outside inference mode: trunk,
         head and `face_postprocess_batch` (the JAX pipeline's `_detect_fn`),
         which core/export.export_detector traces. int8 must be calibrated;
-        bf16 serves the guard depth `_bf16_front_depth` resolves now."""
-        if self.precision == "int8":
+        bf16 serves the guard depth `_bf16_front_depth` resolves now; the
+        int8 guard serves its calibrated int8 front and folded bf16 tail
+        (the JAX `_build_detect`'s hybrid program, without fused blocks)."""
+        if self.precision == "int8" or self._hybrid_front:
             if self._qparams is None:
                 raise RuntimeError(
                     "int8 precision requires calibrate_int8() before detect")
             head = self.model.apply_quant(
                 self._qparams, images,
-                fused_blocks=bool(getattr(self.conf, "int8_pallas_blocks", False)))
+                fused_blocks=(self.precision == "int8"
+                              and bool(getattr(self.conf, "int8_pallas_blocks", False))))
         elif self.precision == "bfloat16":
             head = self._bf16_head(images, self._bf16_front_depth())
         else:
@@ -426,7 +472,7 @@ class FaceDetectorPipeline:
         (cands (B, num_cands, 6), counts (B,)) as numpy: forward, decode,
         NMS and ascending-score candidate selection, on the device."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        if self.precision == "int8" and self._qparams is None:
+        if self._needs_calibration():
             self.calibrate_int8(x)
         if self._bf16_front_auto_pending():
             self.autoselect_bf16_front(x)
@@ -546,7 +592,7 @@ class FaceDetectorPipeline:
                 if return_staged else out
         staged_dev, row_ms, col_ms, uniform = self._fused_inputs(
             staged, geoms, pad_batch_to, dec_dims)
-        need_calib = self.precision == "int8" and self._qparams is None
+        need_calib = self._needs_calibration()
         need_front = self._bf16_front_auto_pending()
         if need_calib or need_front:
             # Up to 32 real images: the box-F1 self-check needs at least 16

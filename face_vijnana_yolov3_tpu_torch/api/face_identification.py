@@ -13,8 +13,10 @@ FaceDetectorPipeline shares the device and the precision.
 
 Each detected box is cropped from the original image with the reference's
 `(t-1):(b-1)` slice, letterboxed to the identifier's size, embedded
-(models/identifier.py: f32, bf16 folded with the f32 front guard, or int8
-through kernel A0) and matched against the registry as one distance matrix
+(models/identifier.py: f32, bf16 folded with the f32 front guard or, with
+`bf16_front_mode="int8"`, with a calibrated int8 guard through kernel A0
+and the folded bf16 rest as the int8 program's tail, or int8 through
+kernel A0) and matched against the registry as one distance matrix
 (ops/similarity.py); a match farther than hps.sim_th writes no row. Two
 crop paths: the host one (cv2 cubic on the f64 crop / 255, the default)
 and `device_roi` (conf.device_roi or FVY_DEVICE_ROI=1: the crops as two
@@ -32,14 +34,13 @@ would each keep their own transient memory in the graphs' pool (PERF.md
 the windowed crops, the embed and the registry match, keyed as the JAX
 `_roi_fused_fn` with the piece's size for its bucket and without n_sub
 (on the staged batch dimension, so the detector's padded short last chunk
-reuses it). int8 calibrates eagerly, before the first capture.
+reuses it). int8 and the int8 guard calibrate eagerly, before the first
+capture, on the first embed's images or the first chunk's real crops.
 `_calibrate_int8`, `train` and any `model.load_state_dict` drop every
 program. `_embed_program` stays the eager embed that core/export.py
 traces.
 TripletDataset's generators are seeded from the pipeline's `seed` (None:
-fresh entropy, as the JAX package's unseeded ones). Refused:
-`bf16_front_mode="int8"` (measured harmful in the JAX package; ROADMAP.md,
-code the port should not carry). `train` runs on the mesh of
+fresh entropy, as the JAX package's unseeded ones). `train` runs on the mesh of
 parallel/mesh.py when the process group is up or `model_axis` > 1 (dense1
 tensor parallelism over `model_axis` ranks; `init_distributed` first). The
 experimental reconstruction decoder (`create_face_reconst_model`,
@@ -129,11 +130,6 @@ class FaceIdentifierPipeline:
     def __init__(self, conf: Conf, *, precision: str = "float32",
                  device: torch.device | str | None = None, seed: int | None = None):
         fi = conf.fi_conf
-        if getattr(fi, "bf16_front_mode", "f32") == "int8":
-            raise NotImplementedError(
-                "fi_conf.bf16_front_mode='int8' is not carried into the port: "
-                "it is EXPERIMENTAL and measured harmful in the JAX package "
-                "(ROADMAP.md, code the port should not carry)")
         if precision not in ("float32", "bfloat16", "int8"):
             raise NotImplementedError(
                 f"precision={precision!r}: the port serves float32, bfloat16 and "
@@ -215,23 +211,42 @@ class FaceIdentifierPipeline:
             self._folded = self.model.fold()
         return self._folded
 
+    @property
+    def _hybrid_front(self) -> bool:
+        """bfloat16 embed with the int8 front guard (conf.bf16_front_mode),
+        as in FaceDetectorPipeline."""
+        return (self.precision == "bfloat16"
+                and getattr(self.conf, "bf16_front_mode", "f32") == "int8")
+
+    def _needs_calibration(self) -> bool:
+        return (self.precision == "int8" or self._hybrid_front) and self._q_embed is None
+
     def _calibrate_int8(self, images: torch.Tensor) -> None:
         """Fold and calibrate the int8 trunk on the first 16 of `images`
-        (face_identification.py:197-214); dense1 stays bf16."""
+        (face_identification.py:197-214); dense1 stays bf16. The int8 guard
+        quantizes the guard segments only (front = max(1,
+        conf.bf16_f32_front)); the rest is the program's folded bf16 tail."""
         pct = getattr(self.conf, "int8_calib_percentile", 0.0) or None
+        tail = 0
+        if self._hybrid_front:
+            n_blocks = sum(1 for op in self.model.ops if op[0] == "save")
+            front = max(1, int(getattr(self.conf, "bf16_f32_front", 2)) or 1)
+            tail = n_blocks - (front - 1)
         self._q_embed = quant.to_device(
             self.model.quantize(
                 self._folded_params(), images[:INT8_CALIB_IMAGES], percentile=pct,
+                bf16_tail_blocks=tail,
                 bias_correct=bool(getattr(self.conf, "int8_bias_correct", False))),
             self.device)
         self.programs.invalidate()
 
     def _ready_to_serve(self):
-        """Raise before a capture when int8 is uncalibrated; fold the bf16
-        parameters outside the program, which must not allocate them."""
-        if self.precision == "int8" and self._q_embed is None:
+        """Raise before a capture when int8 (or the int8 guard) is
+        uncalibrated; fold the bf16 parameters outside the program, which
+        must not allocate them."""
+        if self._needs_calibration():
             raise RuntimeError("int8 precision requires calibration before embed")
-        if self.precision == "bfloat16":
+        if self.precision == "bfloat16" and not self._hybrid_front:
             self._folded_params()
 
     @torch.inference_mode()
@@ -250,7 +265,7 @@ class FaceIdentifierPipeline:
     def _embed_program(self, x: torch.Tensor) -> torch.Tensor:
         """The embed `_embed_tensor` runs, outside inference mode (the JAX
         pipeline's `_embed_raw`), which core/export.export_embedder traces."""
-        if self.precision == "int8":
+        if self.precision == "int8" or self._hybrid_front:
             return self.model.embed_quant(self._q_embed, x)
         if self.precision == "bfloat16":
             # The folded bf16 trunk with the f32 front guard: a trained trunk
@@ -264,9 +279,10 @@ class FaceIdentifierPipeline:
     def embed_device(self, images) -> torch.Tensor:
         """fid extractor: (B, S, S, 3) float images (numpy, or a tensor) →
         (B, D) embeddings on the device, in bucket pieces (`_embed_tensor`).
-        precision='int8' calibrates on the first call's first 16 images."""
+        precision='int8' (and the int8 guard) calibrates on the first call's
+        first 16 images."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        if self.precision == "int8" and self._q_embed is None:
+        if self._needs_calibration():
             self._calibrate_int8(x)
         if x.shape[0] == 0:
             return torch.zeros((0, self.model.dense1_dim), device=self.device)
@@ -535,7 +551,7 @@ class FaceIdentifierPipeline:
         if not owners:
             return out_rows
         n = len(owners)
-        if self.precision == "int8" and self._q_embed is None:
+        if self._needs_calibration():
             self._calibrate_int8(self._roi_crops(plan, slice(0, min(INT8_CALIB_IMAGES, n))))
         self._ready_to_serve()
         idx, dist = zip(*(self.programs.run(*p) for p in self._roi_inputs(plan, reg_dev)))

@@ -137,11 +137,13 @@ def export_detector(pipeline, path: str, *, batch: int | None = None) -> dict:
     (calibrate_int8), and serve their `int8_pallas_blocks` choice. A bf16
     pipeline whose "auto" guard has not been probed exports the depth
     `_bf16_front_depth` gives now (2, the conservative one), recorded in the
-    header. batch=None exports a symbolic batch. Returns the header.
+    header. A bf16 pipeline with the int8 guard (`bf16_front_mode="int8"`)
+    exports its quant route, calibrated first as int8. batch=None exports a
+    symbolic batch. Returns the header.
     """
-    if pipeline.precision == "int8" and pipeline._qparams is None:
+    if pipeline._needs_calibration():
         raise RuntimeError("int8 detector export requires calibrate_int8() first")
-    if pipeline.precision == "bfloat16":
+    if pipeline.precision == "bfloat16" and not pipeline._hybrid_front:
         pipeline._folded_params()  # fold now: a fold inside the trace caches fakes
     n = TRACE_BATCH if batch is None else int(batch)
     size = pipeline.image_size
@@ -167,6 +169,7 @@ def export_detector(pipeline, path: str, *, batch: int | None = None) -> dict:
                                                     False))
     if pipeline.precision == "bfloat16":
         header["bf16_f32_front"] = pipeline._bf16_front_depth()
+        header["bf16_front_mode"] = "int8" if pipeline._hybrid_front else "f32"
     save_artifact(path, exported, header)
     return header
 
@@ -181,16 +184,17 @@ def export_embedder(pipeline, path: str, *, batch: int | None = None,
     with_registry=True: (crops (B, S, S, 3) f32, registry (R, D) f32) →
     (embeddings (B, D), best_idx (B,) int32, best_dist (B,)); the registry
     is an argument with R symbolic, so enrolling never re-exports.
-    with_registry=False: crops → embeddings. An int8 pipeline must have
-    embedded once (that calibrates it). Returns the header.
+    with_registry=False: crops → embeddings. An int8 pipeline, or a bf16
+    one with the int8 guard, must have embedded once (that calibrates it).
+    Returns the header.
     """
-    if pipeline.precision == "int8" and pipeline._q_embed is None:
+    if pipeline._needs_calibration():
         raise RuntimeError(
             "int8 embedder export requires calibration first — call .embed() on "
             "a representative batch before export_embedder()")
     from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
 
-    if pipeline.precision == "bfloat16":
+    if pipeline.precision == "bfloat16" and not pipeline._hybrid_front:
         pipeline._folded_params()  # fold now: a fold inside the trace caches fakes
     size = pipeline.image_size
     dim = pipeline.model.dense1_dim

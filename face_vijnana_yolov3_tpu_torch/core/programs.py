@@ -27,7 +27,12 @@ one copy of the staged chunk between them. What a program holds on its own is it
 graph and its static outputs; the cache keeps the MAX_PROGRAMS most
 recently used and drops the rest (with the input buffers only they used).
 Every input must have the shape and dtype it had when its key was first
-seen, on the CPU too; otherwise the call raises `ProgramError`.
+seen, on the CPU too; otherwise the call raises `ProgramError`. A key
+also names what the program bakes in besides its shapes: the detector's
+keys carry its precision and a variant (the int8 blocks flag, the bf16
+guard depth, or ("int8-front", depth) for the int8 guard, whose program
+is the int8 walk with a bf16 tail), so no two kinds of work share a key
+when a pipeline's configuration changes.
 
 CUDA graphs and not `torch.compile`: a compiler would re-fuse and reorder
 the f32 and bf16 elementwise passes, whose rounding the parity tests pin

@@ -25,9 +25,10 @@ grid search (`calibrate_folded_msegrid`); `quantize_folded(bias_correct=True)`
 folds the measured mean quantization error into the biases
 (`bias_correct_quant`); `int8_error_profile` measures each int8 conv's
 error against the f32 twin, to name the convs worth a bf16 island.
-Distillation QAT (the JAX package's
-models/qat.distill_folded, `int8_qat_steps`) is not carried: it measured
-below every PTQ row (ROADMAP.md, "code the port should not carry").
+Distillation QAT (`int8_qat_steps`) refines the folded kernels against
+the frozen scales before quantize_folded (models/qat.py); the int8 front
+guard of bf16 serving is a program whose bf16 tail starts after the guard
+segments (`bf16_tail_blocks`).
 """
 
 from __future__ import annotations

@@ -6,14 +6,17 @@ gather-form passes and the scaled-decode options are not carried). The tap
 tables stay host numpy, copied: cv2's cubic kernel with a = -0.75, source
 coordinate (x_dst + 0.5) * scale - 0.5, 4 taps with edge replication. The
 device side is two batched matmuls, `torch.matmul` in f32: with TF32 off
-(FaceDetectorPipeline sets it) that is the counterpart of the JAX
-`precision="highest"` (api/face_detection.py:672-677).
+(`exact_f32`) that is the counterpart of the JAX `precision="highest"`
+(api/face_detection.py:672-677). The cols pass contracts the transposed
+row result, so no (B, S, S, W) broadcast of the column matrices is made.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from face_vijnana_yolov3_tpu_torch.models.darknet import exact_f32
 
 
 def _cubic_weights(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -89,10 +92,29 @@ def letterbox_device_matmul(staged: torch.Tensor, row_ms: torch.Tensor,
     """Batched strict letterbox: staged (B, H, W, C) f32 + per-image matrices
     row_ms (B or 1, S, H) / col_ms (B or 1, S, W) → (B, S, S, C) f32.
 
-    Rows pass then cols pass, as the JAX einsums "oh,hwc->owc" and
-    "pw,owc->opc"; a leading 1 broadcasts one matrix pair over the batch.
+    Rows pass then cols pass (`cols_pass`), as the JAX einsums
+    "oh,hwc->owc" and "pw,owc->opc"; a leading 1 broadcasts one matrix pair
+    over the batch. TF32 stays off (the JAX `precision="highest"`).
     """
     b, h, w, c = staged.shape
-    tmp = torch.matmul(row_ms, staged.reshape(b, h, w * c))      # (B, S, W*C)
-    tmp = tmp.reshape(b, -1, w, c)                               # (B, S, W, C)
-    return torch.matmul(col_ms[:, None], tmp)                    # (B, S, S, C)
+    with exact_f32():
+        tmp = torch.matmul(row_ms, staged.reshape(b, h, w * c))      # (B, S, W*C)
+        return cols_pass(tmp.reshape(b, -1, w, c), col_ms)
+
+
+def cols_pass(tmp: torch.Tensor, col_ms: torch.Tensor) -> torch.Tensor:
+    """out[b, o, p, c] = Σ_w col_ms[b, p, w] · tmp[b, o, w, c] for tmp (B,
+    S, W, C) and col_ms (B or 1, P, W) → (B, S, P, C) f32.
+
+    One GEMM per image, col (P, W) @ (W, S·C) over tmp transposed, or one
+    GEMM over (W, B·S·C) when a single matrix serves the batch: the column
+    matrices are never broadcast to (B, S, P, W). The caller sets TF32."""
+    b, s, w, c = tmp.shape
+    p = col_ms.shape[1]
+    if col_ms.shape[0] == 1:
+        rhs = tmp.permute(2, 0, 1, 3).reshape(w, b * s * c)          # [w, (b, o, c)]
+        out = torch.matmul(col_ms[0], rhs).reshape(p, b, s, c)       # [p, b, o, c]
+        return out.permute(1, 2, 0, 3).contiguous()
+    rhs = tmp.permute(0, 2, 1, 3).reshape(b, w, s * c)               # [b, w, (o, c)]
+    out = torch.matmul(col_ms, rhs).reshape(b, p, s, c)              # [b, p, o, c]
+    return out.permute(0, 2, 1, 3).contiguous()

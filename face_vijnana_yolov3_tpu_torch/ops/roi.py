@@ -30,6 +30,7 @@ import torch
 from face_vijnana_yolov3_tpu_torch.models.darknet import exact_f32
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_geometry
 from face_vijnana_yolov3_tpu_torch.ops.resize import (
+    cols_pass,
     cubic_taps,
     letterbox_device_matmul,
     to_unit_f32,
@@ -191,9 +192,12 @@ def roi_letterbox_device(image: torch.Tensor, row_idx: torch.Tensor, row_w: torc
     max_h, max_w = image.shape[0], image.shape[1]
     rm = _mat_from_taps(row_idx, row_w, max_h)
     cm = _mat_from_taps(col_idx, col_w, max_w)
-    r = row_idx.shape[0]
+    r, s = row_idx.shape[0], row_idx.shape[1]
     with exact_f32():
-        return letterbox_device_matmul(img[None].expand(r, *img.shape), rm, cm)
+        # The rows pass of every ROI as one (R·S, H) @ (H, W·C) product: the
+        # image is read once, not expanded to R copies.
+        tmp = torch.matmul(rm.reshape(r * s, max_h), img.reshape(max_h, -1))
+        return cols_pass(tmp.reshape(r, s, max_w, img.shape[2]), cm)
 
 
 def roi_letterbox_device_windowed(staged: torch.Tensor, origins: torch.Tensor,

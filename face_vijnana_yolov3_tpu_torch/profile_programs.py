@@ -2,7 +2,7 @@
 
     python -m face_vijnana_yolov3_tpu_torch.profile_programs [--precision float32 int8]
         [--roi-counts 5,16,17,33] [--frames 8] [--chunks 24] [--batch 32]
-        [--short 1,17] [--reps 10] [--seed 0]
+        [--short 1,17] [--reps 10] [--seed 0] [--exact-keys] [--roi-memory 60]
 
 Times, on seeded random weights and seeded uint8 640x480 frames:
 
@@ -11,13 +11,23 @@ Times, on seeded random weights and seeded uint8 640x480 frames:
   first call (a capture where the tree captures programs) and the median of
   --reps calls; then --chunks chunks whose crop counts are drawn from a
   seeded Poisson(2) per frame, on a fresh pipeline: the whole sequence's
-  first pass (captures included) and second pass;
+  first pass (captures included) and second pass; with --roi-memory N, a
+  fresh pipeline's first call at N crops of 300-400 px a side (windows of
+  512) and `torch.cuda.max_memory_allocated` over it, above what was
+  allocated before;
 - detect: int8 (blocks on) `detect_batch_fused` at --batch frames, then a
   short last chunk of each of --short frames: its first call and the
   median, padded to --batch where the tree's `detect_batch_fused` takes
   `pad_batch_to`, and in that tree also at its exact size; then a test
   set of three full chunks and a 1-frame chunk on a fresh pipeline, first
-  and second pass; and a full chunk under FVY_STAGE_BUCKET 128 and 16.
+  and second pass; a full chunk under FVY_STAGE_BUCKET 128 and 16; and a
+  full chunk of frames of two sizes (640x480 and 608x456 staged in one
+  buffer: one letterbox matrix pair per frame, as chip_smoke.py phase 15).
+
+--exact-keys replaces `face_identification._bucket_split` by one piece of
+the whole count, so every crop count captures (or, in a tree without
+programs, runs) its own program: the exact-count keys that the identifier
+does not serve, timed for comparison.
 
 It uses only calls that the port had before it served through captured
 programs, so that the same script times an older checkout (put that
@@ -85,6 +95,8 @@ def identify(args, precision: str, frames: list, rng) -> dict:
     from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
 
     fim.DEBUG = False
+    if args.exact_keys and hasattr(fim, "_bucket_split"):
+        fim._bucket_split = lambda n: [n]
 
     def pipeline():
         conf = Conf()
@@ -110,6 +122,31 @@ def identify(args, precision: str, frames: list, rng) -> dict:
               f"{rec['median_ms']:.3f} (q1 {rec['q1_ms']:.3f}, q3 {rec['q3_ms']:.3f}); "
               f"programs {rec['programs']}", flush=True)
     del fi
+    if args.roi_memory:
+        fi = pipeline()
+        fi.embed(np.asarray(frames[:1], np.float32)[:, :IMAGE_SIZE, :IMAGE_SIZE] / 255)
+        h, w = FRAME
+        n = args.roi_memory
+        boxes = []
+        for c in spread(n, args.frames):
+            side = rng.uniform(300, 400, (c, 2))
+            x0, y0 = rng.uniform(0, w - side[:, 0]), rng.uniform(0, h - side[:, 1])
+            boxes.append(np.stack([x0, y0, x0 + side[:, 0], y0 + side[:, 1],
+                                   rng.uniform(0.05, 1, c)], axis=1))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: fi._identify_chunk_device(images, boxes, ids, reg_dev))
+        peak = torch.cuda.max_memory_allocated() - base
+        out["roi_memory"] = {"crops": n, "first_ms": ms, "peak_bytes": int(peak),
+                             "programs": n_programs(fi)}
+        print(f"[identify] {precision} {n} crops of 300-400 px, first call {ms:.1f} ms: "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+              f"GiB held before; programs {n_programs(fi)}", flush=True)
+        del fi
+        torch.cuda.empty_cache()
+    if not args.chunks:
+        return out
     fi = pipeline()
     fi.embed(np.asarray(frames[:1], np.float32)[:, :IMAGE_SIZE, :IMAGE_SIZE] / 255)
     seq = [boxes_for(rng, rng.poisson(2, args.frames)) for _ in range(args.chunks)]
@@ -177,6 +214,18 @@ def detect(args, frames: list, rng) -> dict:
         print(f"[detect] int8 b{b} full chunk, FVY_STAGE_BUCKET={bucket}: median "
               f"{out['stage_bucket'][bucket]['median_ms']:.3f} ms", flush=True)
     os.environ.pop("FVY_STAGE_BUCKET")
+    small = (456, 608)
+    mixed = staged.copy()
+    for k in range(1, b, 2):
+        mixed[k] = 0
+        mixed[k, :small[0], :small[1]] = frames[k][:small[0], :small[1]]
+    mixed_geoms = [letterbox_geometry(*(small if k % 2 else FRAME), IMAGE_SIZE)
+                   for k in range(b)]
+    out["mixed"] = first_and_median(lambda: fd.detect_batch_fused(mixed, mixed_geoms),
+                                    args.reps)
+    print(f"[detect] int8 b{b} full chunk of 640x480 and 608x456 frames (a matrix pair "
+          f"each): median {out['mixed']['median_ms']:.3f} ms (q1 "
+          f"{out['mixed']['q1_ms']:.3f}, q3 {out['mixed']['q3_ms']:.3f})", flush=True)
     del fd
     return out
 
@@ -192,6 +241,10 @@ def main() -> int:
     ap.add_argument("--short", default="1,17")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--exact-keys", action="store_true",
+                    help="one identify program per crop count")
+    ap.add_argument("--roi-memory", type=int, default=0,
+                    help="peak memory of one identify chunk of this many large crops")
     args = ap.parse_args()
     args.roi_counts = [int(v) for v in args.roi_counts.split(",")]
     args.short = [int(v) for v in args.short.split(",")]
@@ -203,7 +256,8 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False).stdout.strip()
-    print(f"card: {card}; package {os.path.dirname(pkg.__file__)}", flush=True)
+    print(f"card: {card}; package {os.path.dirname(pkg.__file__)}; exact keys "
+          f"{args.exact_keys}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)

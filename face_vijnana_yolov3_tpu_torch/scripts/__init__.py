@@ -9,9 +9,11 @@ given `--device cpu` (without a card and without that flag they raise):
 - `release_ap`: held-out AP50 and mAP at f32, bf16 and int8 as served, each
   AP50 with a bootstrap interval over the val images;
 - `synthetic_e2e`, `synthetic_fi_e2e`: the detection and identification
-  loops from random init on seeded synthetic data.
+  loops from random init on seeded synthetic data;
+- `qat_conv_exactness`: distillation QAT's fake-quant convs against their
+  exact integer sums, by conv route.
 
-All but `release_ap` port the JAX repo's scripts of the same names; none
+All but `release_ap` and `qat_conv_exactness` port the JAX repo's scripts of the same names; none
 imports anything of it. Their default workdir is `.bench_cache_torch`
 (checkpoints are `.pt` files), so the two packages never load each
 other's checkpoints.

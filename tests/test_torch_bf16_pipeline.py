@@ -234,5 +234,7 @@ def test_bf16_serves_on_the_card_by_default(weights, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_fd.FaceDetectorPipeline(conf, precision="bfloat16")
     conf.bf16_front_mode = "int8"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_fd.FaceDetectorPipeline(conf, precision="bfloat16", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_fd.FaceDetectorPipeline(conf, precision="bfloat16")
+    hybrid = port_fd.FaceDetectorPipeline(conf, precision="bfloat16", device="cpu")
+    assert hybrid._hybrid_front and hybrid._qparams is None

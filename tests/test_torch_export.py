@@ -206,6 +206,39 @@ def test_export_embedder_int8_requires_calibration(tmp_path):
         export_embedder(fi, str(tmp_path / "x.fvyx"))
 
 
+@pytest.mark.parametrize("target", ["detect", "embed"])
+def test_export_int8_front_guard(tmp_path, target):
+    """A bf16 pipeline with the int8 guard (bf16_front_mode="int8") must be
+    calibrated before it exports, and its artifact traces the quant route:
+    the loaded program equals the eager `_detect_program` / `_embed_program`
+    on the same batch, bit for bit."""
+    conf = _conf()
+    conf.fd_conf.bf16_front_mode = conf.fi_conf.bf16_front_mode = "int8"
+    path = str(tmp_path / "hybrid.fvyx")
+    x = torch.from_numpy(_images(3, seed=7))
+    if target == "detect":
+        pipe = FaceDetectorPipeline(conf.fd_conf, precision="bfloat16", device="cpu")
+        with pytest.raises(RuntimeError, match="calibrate_int8"):
+            export_detector(pipe, path)
+        pipe.calibrate_int8(_images(4, seed=8))
+        header = export_detector(pipe, path)
+        assert header["bf16_front_mode"] == "int8" and header["bf16_f32_front"] == 2
+        fn = pipe._detect_program
+    else:
+        pipe = FaceIdentifierPipeline(conf, precision="bfloat16", device="cpu")
+        with pytest.raises(RuntimeError, match="calibration"):
+            export_embedder(pipe, path, with_registry=False)
+        pipe.embed(_images(4, seed=8))
+        export_embedder(pipe, path, with_registry=False)
+        fn = pipe._embed_program
+    assert "tail_start" in (pipe._qparams if target == "detect" else pipe._q_embed)
+    with torch.inference_mode():
+        want = fn(x)
+    got = load_artifact(path)(x)
+    for g, w in zip(got, want) if target == "detect" else [(got, want)]:
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("kind", ["float32", "int8", "identify"])
 def test_artifact_matches_the_jax_artifact(pipes, tmp_path, kind):
     """The port's artifact and the JAX package's, exported from the same

@@ -370,8 +370,10 @@ def test_cli_modes_on_the_cpu(fi, tmp_path, monkeypatch):
 
 
 def test_refused_options_cite_the_roadmap(fi, tmp_path, monkeypatch):
-    """The refused option names its ROADMAP entry; the reconstruction
-    decoder, refused until it was ported, now runs (its parity with the JAX
+    """Options once refused now build: the int8 front guard
+    (bf16_front_mode="int8", held to the JAX package in
+    tests/test_torch_hybrid_front.py); the reconstruction decoder
+    now runs (its parity with the JAX
     package is tests/test_torch_recon.py); model_axis > 1, refused until
     dense1 tensor parallelism was ported, builds, and its mesh asks for
     model_axis ranks as JAX's make_mesh asks for devices (the 2-rank run is
@@ -379,9 +381,10 @@ def test_refused_options_cite_the_roadmap(fi, tmp_path, monkeypatch):
     from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
 
     root = fi["root"]
-    with pytest.raises(NotImplementedError, match="should not carry"):
-        port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv", bf16_front_mode="int8"),
-                                       device="cpu")
+    hybrid = port_fi.FaceIdentifierPipeline(
+        _conf(Conf, root, "x.csv", bf16_front_mode="int8"), precision="bfloat16",
+        device="cpu")
+    assert hybrid._hybrid_front and hybrid._q_embed is None
     tp = port_fi.FaceIdentifierPipeline(_conf(Conf, root, "x.csv", model_axis=2),
                                         device="cpu")
     with pytest.raises(ValueError, match="1 devices not divisible by model=2"):

@@ -219,15 +219,6 @@ def test_fixed_tail_and_islands_skip_the_self_check(runs, tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("int8_qat_steps", 5), ("bf16_front_mode", "int8")])
-def test_unported_int8_options_raise(runs, knob, value):
-    conf = _conf(FdConf, runs["testdir"], "x.csv")
-    setattr(conf, knob, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_fd.FaceDetectorPipeline(conf, precision="int8", device="cpu")
-
-
-@pytest.mark.parametrize("knob,value", [
     ("int8_bias_correct", True), ("int8_calib_percentile", "msegrid")])
 def test_bias_correct_and_msegrid_knobs_calibrate(runs, tmp_path, knob, value):
     """The two calibration knobs reach quantize_folded: the biases move by

@@ -91,3 +91,24 @@ def test_device_letterbox_matches_jax(uniform):
         g = lb.letterbox_geometry(h, w, 64)
         assert not got[k, : g.pad_t].any() and not got[k, 64 - g.pad_b:].any()
         assert not got[k, :, : g.pad_l].any() and not got[k, :, 64 - g.pad_r:].any()
+
+
+def test_cols_pass_allocates_no_broadcast():
+    """The cols pass contracts the transposed row result: no allocation
+    reaches one (B, S, S, W) f32 tensor, the broadcast of the column
+    matrices that `torch.matmul(col_ms[:, None], tmp)` made (21 GB at 60
+    ROIs of W = 512 on the card), divided by 8."""
+    b, s, h, w = 4, 64, 384, 512
+    rng = np.random.default_rng(3)
+    staged = torch.from_numpy(rng.uniform(size=(b, h, w, 3)).astype(np.float32))
+    row = torch.from_numpy(rng.uniform(size=(b, s, h)).astype(np.float32))
+    col = torch.from_numpy(rng.uniform(size=(b, s, w)).astype(np.float32))
+    want = torch.einsum("bpw,bowc->bopc", col,
+                        torch.einsum("boh,bhwc->bowc", row, staged))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                profile_memory=True) as prof:
+        got = rs.letterbox_device_matmul(staged, row, col)
+    largest = max(e.cpu_memory_usage for e in prof.events())
+    broadcast = b * s * s * w * 4
+    assert largest < broadcast / 8, (largest, broadcast)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-3)
