@@ -150,6 +150,23 @@ which raises on failure (exit code != 0):
               detect_batch ms at b32 beside the f32 guard, the FI embed card
               vs CPU and img/s beside the plain bf16 embed, and held-out
               AP50 of the four served CSVs (printed, not gated).
+17. train-programs — the captured training programs (TP_*; core/programs.py
+              with train=True, train/trainer.program_step), in a fresh
+              process (`train_programs_phase_fresh`) on phase 14's set and
+              checkpoint, at 416² and full width: eager vs replay over 8
+              steps, torch.equal on every param, BN and Adam tensor and
+              every loss, for the detector step at f32 b16, fake-quant b16
+              and bf16 b32, the semi-hard triplet step at b8 and
+              distillation QAT, each one captured graph; two seeded
+              train_detector runs (2 epochs at b16) must end on equal
+              checkpoints with deterministic algorithms (the differing
+              tensors without them are printed, not gated); train_img_s
+              eager vs replay with deterministic algorithms on and off
+              (f32 b16, f32 b32, fake-quant b16, bf16 b128) with peak
+              memory, the busy share at f32 b16, triplets/s at bf16 b32,
+              distillation s a step. The training steps reach no kernel of
+              the port (`launches_train_programs`: 0); the serving phases
+              above launch and check all four.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -372,6 +389,29 @@ MODES_TIMING_B = 32
 MODES_FI_CROPS = 64
 MODES_CPU_B, MODES_FI_CPU = 1, 4
 MODES_FI_TOL = 3e-2
+# [train-programs]: the captured training programs (phase 17) at 416², full
+# width, seeded random weights, on phase 14's set and checkpoint. Eager vs
+# replay over TP_STEPS steps, torch.equal on every param, BN and Adam tensor
+# and loss: the detector cases (label, dtype, fake-quant, batch), the
+# semi-hard triplet step at TP_TRIPLET_B, distillation QAT (lr 1e-5, the
+# last 4 blocks, as phase 16). Two train_detector runs of TP_RUN_EPOCHS
+# epochs at TP_RUN_B from one seed, with deterministic algorithms (equal
+# checkpoints required) and without (the differing tensors printed). Step
+# times eager vs replay, deterministic algorithms on and off, at TP_TIMING:
+# two warm-up steps, then TP_TIMING_WINDOWS windows of TP_TIMING_STEPS steps
+# between two CUDA events each (host launches included); triplets/s at
+# TP_TRIPLET_TIMING_B (bf16, random mining); the busy share of f32 b16.
+TP_STEPS = 8
+TP_CASES = (("f32", torch.float32, False, 16), ("fakequant", torch.float32, True, 16),
+            ("bf16", torch.bfloat16, False, 32))
+TP_TRIPLET_B = 8
+TP_RUN_EPOCHS, TP_RUN_B = 2, 16
+TP_TIMING = (("f32", torch.float32, False, 16), ("f32", torch.float32, False, 32),
+             ("fakequant", torch.float32, True, 16), ("bf16", torch.bfloat16, False, 128))
+TP_TIMING_STEPS, TP_TIMING_WINDOWS = 3, 2
+TP_TRIPLET_TIMING_B = 32
+TP_LR = 1e-4
+TP_QAT_LR, TP_QAT_TAIL = 1e-5, 4
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
 PEAK_BF16 = 989e12  # bf16 tensor-core operations / s
@@ -3358,6 +3398,353 @@ def modes_phase_fresh(tmp: str) -> tuple[dict, dict]:
     return launches, rates
 
 
+def _run_steps(step, carry, feeds):
+    """`step` over `feeds` from `carry` → (the last carry, the losses)."""
+    losses = []
+    for feed in feeds:
+        *carry, loss = step(*carry, *feed)
+        losses.append(loss)
+    return carry, losses
+
+
+def _carry_diff(got, want) -> tuple[int, int]:
+    """(tensors that differ, tensors) between two carries of a step."""
+    from face_vijnana_yolov3_tpu_torch.train import trainer
+
+    a, b = trainer._carry_leaves(got, want), trainer._carry_leaves(want, want)
+    return sum(not torch.equal(x, y) for x, y in zip(a, b)), len(b)
+
+
+def _one_graph(programs) -> bool:
+    """The cache holds one program, and it is a captured graph."""
+    return len(programs) == 1 and all(g is not None for _sig, g in programs._programs.values())
+
+
+def _step_ms(step, carry, feeds) -> list[float]:
+    """ms a step: two warm-up steps, then TP_TIMING_WINDOWS windows of
+    TP_TIMING_STEPS steps (cycling `feeds`), each between two CUDA events."""
+    carry, nxt = list(carry), itertools.cycle(feeds).__next__
+
+    def advance():
+        carry[:] = step(*carry, *nxt())[:-1]
+
+    for _ in range(2):
+        advance()
+    times = []
+    for _ in range(TP_TIMING_WINDOWS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TP_TIMING_STEPS):
+            advance()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / TP_TIMING_STEPS)
+    return times
+
+
+def _busy(step, carry, feeds) -> dict:
+    """`device_trace` of PROGRAM_BUSY_REPS steps of `step` from `carry`."""
+    carry, nxt = list(carry), itertools.cycle(feeds).__next__
+
+    def advance():
+        carry[:] = step(*carry, *nxt())[:-1]
+
+    return device_trace(advance, PROGRAM_BUSY_REPS)
+
+
+def train_programs_phase(tmp, card, dev):
+    """The captured training programs on the card (phase 17, TP_*), on phase
+    14's set and checkpoint (tmp/release): eager vs replay over TP_STEPS
+    steps for the detector cases, the semi-hard triplet step and
+    distillation QAT (every carry tensor and loss torch.equal, one captured
+    graph per step kind); two seeded train_detector runs with deterministic
+    algorithms (equal checkpoints) and without (differences printed); step
+    times eager vs replay with deterministic algorithms on and off, peak
+    memory, triplets/s, distillation s a step, the busy share. Returns (the
+    kernel launches of the phase, which reaches no kernel of the port, its
+    numbers)."""
+    from face_vijnana_yolov3_tpu_torch import kernels, profile_train
+    from face_vijnana_yolov3_tpu_torch.convert import (
+        identifier_params_from_jax,
+        params_from_jax,
+    )
+    from face_vijnana_yolov3_tpu_torch.core.checkpoints import load_checkpoint, load_opt_state
+    from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache
+    from face_vijnana_yolov3_tpu_torch.data.uccs import DetectionDataset
+    from face_vijnana_yolov3_tpu_torch.models import darknet, qat, quant
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel, head_conv
+    from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
+    from face_vijnana_yolov3_tpu_torch.ops import (  # noqa: F401  (register the wrappers)
+        block_int8,
+        conv_int8,
+        front_fused,
+        nms_sweep,
+    )
+    from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+
+    t_phase = time.perf_counter()
+    for k in kernels.LAUNCH_COUNTERS:
+        k.launches = 0
+    S = IMAGE_SIZE
+    work = os.path.join(tmp, "release")
+    ds = DetectionDataset(work, image_size=S, grid=S // 32, cache="disk")
+    images, gts = ds.batch(0, len(ds))
+    n = len(images)
+    model = FaceDetectorModel(image_size=S, device=dev)
+    sd = params_from_jax(*model.init_params(SEED + 17))
+    p0, s0 = darknet.split_state_dict({k: v.to(dev) for k, v in sd.items()})
+    rates: dict = {}
+
+    def det_feeds(b, dtype, count):
+        """`count` device-resident batches of b rows, the set cycled."""
+        out = []
+        for i in range(count):
+            rows = (np.arange(b) + i * b) % n
+            out.append((torch.from_numpy(images[rows]).to(dev).to(dtype),
+                        torch.from_numpy(gts[rows]).to(dev), torch.ones(b, device=dev)))
+        return out
+
+    # (a) eager vs replay, detector steps.
+    for label, dtype, fq, b in TP_CASES:
+        feeds = det_feeds(b, dtype, TP_STEPS)
+        opt = optimizer.KerasAdam(TP_LR)
+        step = trainer.make_train_step(model, opt, compute_dtype=dtype, fakequant=fq)
+        carry0 = (p0, s0, opt.init(p0))
+        programs = ProgramCache(dev, train=True)
+        with trainer.deterministic():
+            want, w_losses = _run_steps(step, carry0, feeds)
+            got, g_losses = _run_steps(trainer.program_step(
+                programs, ("detector", str(dtype), fq), step, 3), carry0, feeds)
+        torch.cuda.synchronize()
+        diff, total = _carry_diff(got, want)
+        same_loss = all(torch.equal(a, c) for a, c in zip(g_losses, w_losses))
+        print(f"[train-programs] detector {label} b={b} at {S}², {TP_STEPS} steps, eager vs "
+              f"replay on {card}: {diff} of {total} param/BN/Adam tensors differ, losses "
+              f"equal {same_loss} (last {float(g_losses[-1]):.6f}); one captured graph "
+              f"{_one_graph(programs)}")
+        if diff or not same_loss or not _one_graph(programs):
+            raise AssertionError(f"[train-programs] detector {label}: replay != eager")
+        del feeds, programs, want, got, step
+        torch.cuda.empty_cache()
+
+    # (b) eager vs replay, the semi-hard triplet step (f32, b8).
+    fi_model = FaceIdentifierModel(image_size=S, device=dev)
+    fi_params, fi_state = fi_model.init_params(SEED + 18)
+    darknet.perturb_batchnorm(fi_params, fi_state, fi_model.ops, SEED + 19)
+    fp0, fs0 = darknet.split_state_dict(
+        {k: v.to(dev) for k, v in identifier_params_from_jax(fi_params, fi_state).items()})
+    del fi_params, fi_state
+    rng = np.random.default_rng(SEED + 17)
+
+    def triplet_feeds(b, dtype, count, semi):
+        out = []
+        for _ in range(count):
+            apn = tuple(torch.from_numpy(rng.uniform(size=(b, S, S, 3)).astype(np.float32))
+                        .to(dev).to(dtype) for _ in range(3))
+            feed = (*apn, torch.ones(b, device=dev))
+            if semi:
+                sa = rng.integers(0, 4, b).astype(np.int32)
+                sn = (sa + 1 + rng.integers(0, 3, b).astype(np.int32)) % 4
+                feed += (torch.from_numpy(sa).to(dev), torch.from_numpy(sn).to(dev))
+            out.append(feed)
+        return out
+
+    feeds = triplet_feeds(TP_TRIPLET_B, torch.float32, TP_STEPS, True)
+    opt = optimizer.KerasAdam(TP_LR)
+    step = trainer.make_triplet_step(fi_model, opt, mining="semi_hard")
+    carry0 = (fp0, fs0, opt.init(fp0))
+    programs = ProgramCache(dev, train=True)
+    with trainer.deterministic():
+        want, w_losses = _run_steps(step, carry0, feeds)
+        got, g_losses = _run_steps(trainer.program_step(
+            programs, ("identifier", "torch.float32", "semi_hard", False, False), step, 3),
+            carry0, feeds)
+    torch.cuda.synchronize()
+    diff, total = _carry_diff(got, want)
+    same_loss = all(torch.equal(a, c) for a, c in zip(g_losses, w_losses))
+    print(f"[train-programs] semi-hard triplet step b={TP_TRIPLET_B} ({3 * TP_TRIPLET_B} "
+          f"images) at {S}², {TP_STEPS} steps, eager vs replay: {diff} of {total} tensors "
+          f"differ, losses equal {same_loss} (last {float(g_losses[-1]):.6f}); one captured "
+          f"graph {_one_graph(programs)}")
+    if diff or not same_loss or not _one_graph(programs):
+        raise AssertionError("[train-programs] the semi-hard triplet step: replay != eager")
+    del feeds, programs, want, got, step
+    torch.cuda.empty_cache()
+
+    # (c) eager vs replay, distillation QAT on phase 14's checkpoint.
+    fd = FaceDetectorModel(image_size=S, device=dev)
+    fd.load_state_dict(load_checkpoint(os.path.join(work, "fd_ckpt_qat.pt")))
+    folded = fd.fold()
+    x_cal = torch.from_numpy(images[:MODES_CALIB]).to(dev)
+    act_scales = quant.calibrate_folded(folded, x_cal[:16], fd.ops)
+    real_program_step = trainer.program_step
+    distill = {}
+    for eager in (False, True):
+        rec = {"ms": []}
+
+        def spy(programs, key, step, n_carry, rec=rec, eager=eager):
+            rec["programs"] = programs
+            run = step if eager else real_program_step(programs, key, step, n_carry)
+
+            def timed(*args):
+                t0 = time.perf_counter()
+                rec["last"] = run(*args)
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                return rec["last"]
+
+            return timed
+
+        trainer.program_step = spy
+        try:
+            refined, losses = qat.distill_folded(
+                folded, x_cal, fd.ops, act_scales=act_scales,
+                head_fn=lambda outs, prm: head_conv(outs["trunk"], prm["head"], torch.float32),
+                steps=TP_STEPS, lr=TP_QAT_LR, tail_blocks=TP_QAT_TAIL)
+        finally:
+            trainer.program_step = real_program_step
+        distill["eager" if eager else "replay"] = (refined, losses, rec)
+    (r_ref, r_loss, r_rec), (e_ref, e_loss, e_rec) = distill["replay"], distill["eager"]
+    diff = sum(not torch.equal(r_ref[k][m], e_ref[k][m]) for k in e_ref for m in e_ref[k])
+    c_diff, c_total = _carry_diff(r_rec["last"][:-1], e_rec["last"][:-1])
+    rates["distill_s_step_eager"] = float(np.median(e_rec["ms"][1:])) / 1e3
+    rates["distill_s_step_replay"] = float(np.median(r_rec["ms"][1:])) / 1e3
+    rates["distill_first_call_s_replay"] = r_rec["ms"][0] / 1e3
+    print(f"[train-programs] distillation QAT on phase 14's checkpoint ({MODES_CALIB} "
+          f"images, b8, lr {TP_QAT_LR:g}, the last {TP_QAT_TAIL} blocks), {TP_STEPS} steps, "
+          f"eager vs replay on {card}: {diff} refined tensors and {c_diff} of {c_total} "
+          f"leaf/Adam tensors differ, losses equal {r_loss == e_loss} (last "
+          f"{r_loss[-1]:.4e}); s a step eager {rates['distill_s_step_eager']:.4f}, replay "
+          f"{rates['distill_s_step_replay']:.4f} (the first replayed call, capture included, "
+          f"{rates['distill_first_call_s_replay']:.3f} s); one captured graph "
+          f"{_one_graph(r_rec['programs'])}")
+    if diff or c_diff or r_loss != e_loss or not _one_graph(r_rec["programs"]):
+        raise AssertionError("[train-programs] distillation: replay != eager")
+    del distill, r_rec, e_rec, r_ref, e_ref, folded, fd, x_cal
+    torch.cuda.empty_cache()
+
+    # (d) two seeded train_detector runs, with and without deterministic algorithms.
+    hps = {"lr": TP_LR, "beta_1": 0.99, "beta_2": 0.99, "decay": 0.0,
+           "epochs": TP_RUN_EPOCHS, "batch_size": TP_RUN_B}
+    for det in (True, False):
+        ckpts, hist = [], []
+        for run in ("a", "b"):
+            p, s_ = darknet.split_state_dict({k: v.to(dev) for k, v in sd.items()})
+            path = os.path.join(tmp, f"train_programs_{run}_{det}.pt")
+            if det:
+                _, _, losses = trainer.train_detector(model, p, s_, ds, dict(hps),
+                                                      log_every=0, checkpoint_path=path)
+            else:
+                with profile_train.flags("off"):
+                    _, _, losses = trainer.train_detector.__wrapped__(
+                        model, p, s_, ds, dict(hps), log_every=0, checkpoint_path=path)
+            ckpts.append((load_checkpoint(path), load_opt_state(path)))
+            hist.append(losses)
+        (sa, oa), (sb, ob) = ckpts
+        ta = list(sa.values()) + [oa["count"], *oa["mu"].values(), *oa["nu"].values()]
+        tb = [sb[k] for k in sa] + [ob["count"], *(ob["mu"][k] for k in oa["mu"]),
+                                    *(ob["nu"][k] for k in oa["mu"])]
+        diff = sum(not torch.equal(x, y) for x, y in zip(ta, tb))
+        loss_diff = sum(x != y for x, y in zip(*hist))
+        tag = "on" if det else "off"
+        rates[f"two_runs_differing_tensors_det_{tag}"] = diff
+        rates[f"two_runs_differing_losses_det_{tag}"] = loss_diff
+        print(f"[train-programs] two train_detector runs ({TP_RUN_EPOCHS} epochs at "
+              f"b={TP_RUN_B} on phase 14's {n} images, f32, one seed), deterministic "
+              f"algorithms {tag}: {diff} of {len(ta)} checkpoint tensors (params, BN, Adam) "
+              f"and {loss_diff} of {len(hist[0])} losses differ"
+              + ("" if det else " (printed, not gated)"))
+        if det and (diff or loss_diff):
+            raise AssertionError("[train-programs] two seeded runs ended on different "
+                                 "checkpoints with deterministic algorithms")
+    del ckpts
+    torch.cuda.empty_cache()
+
+    # (e) step times, eager vs replay, deterministic algorithms on and off.
+    for label, dtype, fq, b in TP_TIMING:
+        feeds = det_feeds(b, dtype, 2)
+        opt = optimizer.KerasAdam(TP_LR)
+        step = trainer.make_train_step(model, opt, compute_dtype=dtype, fakequant=fq)
+        carry0 = (p0, s0, opt.init(p0))
+        for det in (True, False):
+            rec = {}
+            with profile_train.flags("on" if det else "off"):
+                for path in ("eager", "replay"):
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    fn = step if path == "eager" else trainer.program_step(
+                        ProgramCache(dev, train=True), ("detector", str(dtype), fq), step, 3)
+                    ms = _step_ms(fn, carry0, feeds)
+                    rec[path] = dict(ms=ms, img_s=b / (np.median(ms) / 1e3),
+                                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                    if label == "f32" and b == 16 and det:
+                        t = _busy(fn, carry0, feeds)
+                        rec[path]["busy"], rec[path]["trace"] = t["busy"], t
+                    del fn  # the program and its pool go before the next one
+            name = f"{label}_b{b}_det_{'on' if det else 'off'}"
+            rates[name] = rec
+            busy = "".join(f"; busy {p} {rec[p]['busy']:.1%} (wall {rec[p]['trace']['wall_ms']:.2f}, "
+                           f"busy {rec[p]['trace']['busy_ms']:.2f} ms)"
+                           for p in ("eager", "replay") if "busy" in rec[p])
+            print(f"[train-programs] train_img_s {label} b={b} at {S}², deterministic "
+                  f"algorithms {'on' if det else 'off'}, on {card}: eager "
+                  f"{rec['eager']['img_s']:.1f} img/s ({quartiles(rec['eager']['ms'])} a step, "
+                  f"peak {rec['eager']['peak_gib']:.1f} GiB), replay "
+                  f"{rec['replay']['img_s']:.1f} img/s ({quartiles(rec['replay']['ms'])}, peak "
+                  f"{rec['replay']['peak_gib']:.1f} GiB){busy}")
+        del feeds, step
+        torch.cuda.empty_cache()
+
+    # (f) triplets/s, eager vs replay (bf16, random mining).
+    b = TP_TRIPLET_TIMING_B
+    feeds = triplet_feeds(b, torch.bfloat16, 2, False)
+    opt = optimizer.KerasAdam(TP_LR)
+    step = trainer.make_triplet_step(fi_model, opt, compute_dtype=torch.bfloat16)
+    carry0 = (fp0, fs0, opt.init(fp0))
+    rec = {}
+    with trainer.deterministic():
+        for path in ("eager", "replay"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn = step if path == "eager" else trainer.program_step(
+                ProgramCache(dev, train=True),
+                ("identifier", "torch.bfloat16", "random", False, False), step, 3)
+            ms = _step_ms(fn, carry0, feeds)
+            rec[path] = dict(ms=ms, triplets_s=b / (np.median(ms) / 1e3),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del fn
+    rates[f"triplets_bf16_b{b}"] = rec
+    print(f"[train-programs] triplets/s bf16 b={b} ({3 * b} images a step) at {S}², "
+          f"deterministic algorithms on, on {card}: eager {rec['eager']['triplets_s']:.1f} "
+          f"({quartiles(rec['eager']['ms'])}, peak {rec['eager']['peak_gib']:.1f} GiB), "
+          f"replay {rec['replay']['triplets_s']:.1f} ({quartiles(rec['replay']['ms'])}, "
+          f"peak {rec['replay']['peak_gib']:.1f} GiB)")
+    del feeds, step, fi_model
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.LAUNCH_COUNTERS}
+    print(f"[train-programs] kernel launches of the phase {launches} (the training "
+          f"steps reach no kernel of the port); phase {time.perf_counter() - t_phase:.0f} s")
+    return launches, rates
+
+
+def train_programs_phase_fresh(tmp: str) -> tuple[dict, dict]:
+    """Phase 17 in a fresh process, as phases 15 and 16: its lines passed
+    through; returns (its kernel launches, its numbers)."""
+    out = os.path.join(tmp, "train_programs_phase.json")
+    code = ("import json, torch, chip_smoke as cs; "
+            f"r = cs.train_programs_phase({tmp!r}, cs.nvidia_smi(), torch.device(cs.DEVICE)); "
+            f"json.dump(r, open({out!r}, 'w'))")
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, "-c", code], timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"[train-programs] the fresh process failed (exit "
+                             f"{proc.returncode})")
+    with open(out) as f:
+        launches, rates = json.load(f)
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs on the card only",
@@ -3655,7 +4042,15 @@ def main() -> int:
         t_modes = time.perf_counter()
         modes_launches, modes_rates = modes_phase_fresh(tmp)
         print(f"[modes] done at {time.perf_counter() - t_start:.0f} s (phase "
-              f"{time.perf_counter() - t_modes:.0f} s); total run "
+              f"{time.perf_counter() - t_modes:.0f} s)")
+        t_tp = time.perf_counter()
+        torch.cuda.empty_cache()  # the fresh process trains at bf16 b128 (~46 GiB)
+        print(f"[train-programs] this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved on the card")
+        tp_launches, tp_rates = train_programs_phase_fresh(tmp)
+        print(f"[train-programs] done at {time.perf_counter() - t_start:.0f} s (phase "
+              f"{time.perf_counter() - t_tp:.0f} s); total run "
               f"{time.perf_counter() - t_start:.0f} s")
 
     nms = nms_rec[KERNEL_B]
@@ -3677,6 +4072,7 @@ def main() -> int:
         "launches_release": release_launches["nms_sweep"],
         "launches_programs": programs_launches.get("nms_sweep", 0),
         "launches_modes": modes_launches.get("nms_sweep", 0),
+        "launches_train_programs": tp_launches.get("nms_sweep", 0),
         "events_ms": nms["events_ms"],
         "ms_coco_80x256": coco_rates["nms_ms_80x256"],
         "plain_ms_coco_80x256": coco_rates["nms_plain_ms_80x256"],
@@ -3707,6 +4103,7 @@ def main() -> int:
             "launches_release": release_launches[name],
             "launches_programs": programs_launches.get(name, 0),
             "launches_modes": modes_launches.get(name, 0),
+            "launches_train_programs": tp_launches.get(name, 0),
         })
         if name == "fused_front":
             kernel_lines[-1].update(events_ms=rec["events_ms"], stock_front_ms=rec["stock_ms"])
@@ -3724,6 +4121,7 @@ def main() -> int:
     print(json.dumps({"release": release_rates, "release_launches": release_launches}))
     print(json.dumps({"programs": programs_rates, "programs_launches": programs_launches}))
     print(json.dumps({"modes": modes_rates, "modes_launches": modes_launches}))
+    print(json.dumps({"train_programs": tp_rates, "train_programs_launches": tp_launches}))
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,18 @@ profile_detect  where the card's time goes in detect_batch (torch.profiler)
 Layout: public functions take NHWC images and return the JAX package's
 shapes ((B, 13, 13, 6) head, (B, 60, 6) candidates, (B,) counts); convs run
 NCHW inside.
+
+Training runs with deterministic algorithms (train/trainer.deterministic),
+and `torch.use_deterministic_algorithms` accepts a cuBLAS call only when
+CUBLAS_WORKSPACE_CONFIG names a fixed workspace. PyTorch reads the variable
+once, at the process's first cuBLAS call, which serving may make before any
+training does; so it is set here, unless the caller set it. ":4096:8" is
+the 32 MiB that PyTorch gives each cuBLAS handle on Hopper by default, so
+serving's cuBLAS calls are the same with it.
 """
+
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 __version__ = "0.1.0"

@@ -502,7 +502,9 @@ def _apply_graph_remat(params, state, x, ops, *, remat, compute_dtype, bn_moment
                 k: v for k, v in st.items() if k.rsplit(".", 1)[0] in seg_bn}
 
         if i < n_ckpt:
-            h, st = checkpoint(seg_fn, h, use_reentrant=False)
+            # The forward draws no random numbers: nothing to stash, and a
+            # captured training program could not read the RNG state.
+            h, st = checkpoint(seg_fn, h, use_reentrant=False, preserve_rng_state=False)
         else:
             h, st = seg_fn(h)
         new_state.update(st)

@@ -245,7 +245,7 @@ def triplet_step_loss(out: torch.Tensor, weights: torch.Tensor, dim: int, *,
         d_all = torch.sqrt(torch.clamp_min(
             torch.sum((ea[:, None] - pool[None]) ** 2, dim=-1), 1e-12))  # (B, 3B)
         valid = (pool_sid[None, :] != sid_a[:, None]) & (pool_w[None, :] > 0.0)
-        inf = torch.tensor(1e9, dtype=d_all.dtype, device=d_all.device)
+        inf = d_all.new_full((), 1e9)  # a fill, not a host copy: capturable
         harder = valid & (d_all > d_ap[:, None])
         semi = harder & (d_all < d_ap[:, None] + alpha)
         cand = torch.where(

@@ -111,8 +111,9 @@ def _fq_conv(h_fq: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, op: t
     amax = torch.clamp_min(k_eff.detach().abs().amax(dim=(1, 2, 3)), 1e-8)
     # Divided by a tensor on amax's device: CUDA turns a division by a
     # Python number into a product with its reciprocal, which rounds some
-    # scales one ulp away from quantize_folded's f32 quotient.
-    w_scale = amax / amax.new_tensor(127.0)
+    # scales one ulp away from quantize_folded's f32 quotient. A fill, not a
+    # host copy, so that a training program can capture it.
+    w_scale = amax / amax.new_full((), 127.0)
     k_int = _ste_round_clip(k_eff / w_scale[:, None, None, None])
     acc = _int_valued_conv(x_int, k_int, stride)
     y = _Fma.apply(acc, w_scale, bias)
@@ -135,7 +136,14 @@ def apply_graph_fakequant(folded_params: dict, x: torch.Tensor, ops: list[tuple]
     an "add" adds the skip in its epilogue and fake-quantizes once, at the
     post-add position's scale, as the fused serving path.
     """
-    scales = _device_scales(act_scales, x.device)
+    return _fakequant_walk(folded_params, x, ops, _device_scales(act_scales, x.device))
+
+
+def _fakequant_walk(folded_params: dict, x: torch.Tensor, ops: list[tuple],
+                    scales: list[tuple]) -> dict[str, torch.Tensor]:
+    """`apply_graph_fakequant` on the scales already on x's device
+    (`_device_scales`), so that a training program copies nothing from the
+    host."""
     saved: dict[str, tuple[torch.Tensor, tuple]] = {}
     outputs: dict[str, torch.Tensor] = {}
     h = _fq_act(x.float(), scales[0])
@@ -202,15 +210,22 @@ def distill_folded(folded_params: dict, images, ops: list[tuple], *, act_scales,
     residual blocks on (quant.tail_start_index), the rest stay at their
     start values. student_init: the student's start (default
     folded_params).
+
+    Each step replays one captured training program (the JAX package's
+    jitted `step`; train/trainer.program_step) whose carry is the trainable
+    leaves and the Adam state; the drawn indices are its one input, the
+    images and the teacher's outputs stay on the device, closed over. The
+    call runs under train/trainer.deterministic().
     """
     from face_vijnana_yolov3_tpu_torch.models.quant import tail_start_index
+    from face_vijnana_yolov3_tpu_torch.train import trainer
 
     device = folded_params[next(iter(folded_params))]["kernel"].device
 
     def plain(p: dict) -> dict:  # normal tensors (not inference ones), detached
         return {k: {n: t.detach().clone() for n, t in v.items()} for k, v in p.items()}
 
-    with torch.inference_mode(False):
+    with torch.inference_mode(False), trainer.deterministic():
         teacher_params = plain(folded_params)
         start = plain(folded_params if student_init is None else student_init)
         x_all = torch.as_tensor(np.asarray(images, np.float32) if not isinstance(
@@ -234,26 +249,39 @@ def distill_folded(folded_params: dict, images, ops: list[tuple], *, act_scales,
                 teacher_params, x_all,
                 lambda p, x: darknet.apply_graph_folded(p, x, ops,
                                                         compute_dtype=torch.float32)))
-        flat = {f"{k}.{n}": t.requires_grad_(True)
-                for k, v in start.items() if is_trainable(k) for n, t in v.items()}
+        scales = _device_scales(act_scales, device)
+        flat = {f"{k}.{n}": t for k, v in start.items() if is_trainable(k)
+                for n, t in v.items()}
         opt = OptaxAdam(lr)
+
+        def step(flat, opt_state, idx):
+            """One step of the JAX package's jitted `step`: the fake-quant
+            loss of the drawn images and its gradients, Adam, p + u."""
+            leaves = {k: t.detach().requires_grad_(True) for k, t in flat.items()}
+            prm = {k: {n: leaves.get(f"{k}.{n}", t) for n, t in v.items()}
+                   for k, v in start.items()}
+            with torch.enable_grad():
+                pred = _leaves(model_out(prm, x_all[idx],
+                                         lambda p, x: _fakequant_walk(p, x, ops, scales)))
+                loss = sum(torch.mean(torch.square(a - t[idx]))
+                           for a, t in zip(pred, teacher))
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            updates, opt_state = opt.update(dict(zip(leaves, grads)), opt_state)
+            with torch.no_grad():
+                new = torch._foreach_add(list(leaves.values()),
+                                         [updates[k] for k in leaves])
+            return dict(zip(leaves, new)), opt_state, loss.detach()
+
+        run = trainer.program_step(trainer.ProgramCache(device, train=True),
+                                   ("distill", batch_size, tail_blocks), step, 2)
         opt_state = opt.init(flat)
         rng = np.random.default_rng(seed)
         losses = []
         for it in range(steps):
             idx = torch.from_numpy(rng.choice(n, size=batch_size, replace=False)).to(device)
-            with torch.enable_grad():
-                pred = _leaves(model_out(
-                    start, x_all[idx],
-                    lambda p, x: apply_graph_fakequant(p, x, ops, act_scales)))
-                loss = sum(torch.mean(torch.square(a - t[idx]))
-                           for a, t in zip(pred, teacher))
-                grads = torch.autograd.grad(loss, list(flat.values()))
-            updates, opt_state = opt.update(dict(zip(flat, grads)), opt_state)
-            with torch.no_grad():
-                for k, u in updates.items():
-                    flat[k].add_(u)
-            losses.append(float(loss.detach()))
+            flat, opt_state, loss = run(flat, opt_state, idx)
+            losses.append(float(loss))
             if log_every and (it % log_every == 0 or it == steps - 1):
                 print(f"[qat] step {it}: distill mse {losses[-1]:.3e}")
-        return plain(start), losses
+        return plain({k: {n: flat.get(f"{k}.{n}", t) for n, t in v.items()}
+                      for k, v in start.items()}), losses

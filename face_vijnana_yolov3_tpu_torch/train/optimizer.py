@@ -12,7 +12,12 @@ Keras 2.2.4's update differs from torch.optim.Adam's in two places:
 
 The step arithmetic is f32 throughout, as in the JAX transformation (t, the
 powers and a_t are f32 scalars); the moments update with `torch._foreach_*`
-ops, one launch a group instead of one a tensor.
+ops, one launch a group instead of one a tensor. Every per-step number (the
+count, t, lr_t, a_t, the bias corrections) is a device tensor computed from
+`state.count`; the Python numbers an update reads (lr, the betas, decay,
+eps) are fixed for the optimizer's life. So a captured training step
+(core/programs.py) replays the same kernels on the same values as the
+eager update, step after step.
 """
 
 from __future__ import annotations

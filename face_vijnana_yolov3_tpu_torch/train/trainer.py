@@ -30,10 +30,21 @@ precision: each conv casts its input and kernel to bf16 (models/darknet.
 apply_graph_train), while BN statistics, the loss, the master params and the
 Adam state stay f32. Explicit casts, not torch.autocast, whose op list is
 not the JAX program's.
+
+Programs: one process (mesh=None) runs each step through one captured
+training program (core/programs.py, `program_step`), as the JAX package
+runs one jitted step; `make_train_step` and `make_triplet_step` stay the
+eager steps a program captures. With a mesh the steps run eagerly: their
+collectives would have to stay outside the graph.
+
+Reproducibility: both loops (and models/qat.distill_folded) run under
+`deterministic()`, so two runs from the same seeds end on the same bits, as
+the JAX package's do, and a replayed step equals the eager one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -41,12 +52,101 @@ import time
 import numpy as np
 import torch
 
+from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache
 from face_vijnana_yolov3_tpu_torch.data.pipeline import prefetch_batches
 from face_vijnana_yolov3_tpu_torch.train.optimizer import (
+    AdamState,
     KerasAdam,
     adam_state_dict,
     coerce_adam_state,
 )
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms and TF32 off for the block (a training
+    call): cuDNN's deterministic algorithms without autotuning (autotuning
+    picks by timing, so two runs could pick two algorithms), and
+    `torch.use_deterministic_algorithms(True)`, which also needs cuBLAS's
+    fixed workspace (`CUBLAS_WORKSPACE_CONFIG`, set when the package is
+    imported), without its NaN fill of every `torch.empty`: no step reads
+    memory it did not write, and the fill cost 3-6 % of a step on an H100
+    (PERF.md §6, profile_train.py). TF32 off in cuDNN and cuBLAS, the JAX f32
+    contract. Every flag comes back as it was after the block, also on an
+    exception, so serving after a training call runs as before it."""
+    import torch.utils.deterministic as det
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             torch.get_float32_matmul_precision(),
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    try:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = True, False, False
+        torch.set_float32_matmul_precision("highest")
+        torch.use_deterministic_algorithms(True)
+        det.fill_uninitialized_memory = False
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved[:3]
+        torch.set_float32_matmul_precision(saved[3])
+        torch.use_deterministic_algorithms(saved[4], warn_only=saved[5])
+        det.fill_uninitialized_memory = saved[6]
+
+
+def _carry_leaves(carry, like) -> list:
+    """The tensors of `carry` (dicts of tensors and AdamStates) in the
+    order of `like`, a carry of the same structure: dicts by like's keys,
+    an AdamState as its count, then its moments by like's keys."""
+    out = []
+    for c, ref in zip(carry, like, strict=True):
+        if isinstance(ref, AdamState):
+            out += [c.count, *(c.mu[k] for k in ref.mu), *(c.nu[k] for k in ref.mu)]
+        else:
+            out += [c[k] for k in ref]
+    return out
+
+
+def _carry_like(like, leaves) -> tuple:
+    """The inverse of `_carry_leaves`: `like`'s structure over `leaves`."""
+    out, i = [], 0
+    for ref in like:
+        if isinstance(ref, AdamState):
+            keys, n = list(ref.mu), len(ref.mu)
+            out.append(AdamState(count=leaves[i],
+                                 mu=dict(zip(keys, leaves[i + 1:i + 1 + n])),
+                                 nu=dict(zip(keys, leaves[i + 1 + n:i + 1 + 2 * n]))))
+            i += 1 + 2 * n
+        else:
+            out.append(dict(zip(ref, leaves[i:i + len(ref)])))
+            i += len(ref)
+    return tuple(out)
+
+
+def program_step(programs: ProgramCache, key: tuple, step, n_carry: int):
+    """`step(*carry, *batch) → (*carry, loss)` through one training program
+    of `programs` per `key` and batch shapes (the JAX package's jitted
+    step). The first `n_carry` arguments, dicts of tensors and AdamStates
+    (params, BN state, optimizer state), are the program's donated carry
+    (core/programs.py): on the card the returned carry is the program's
+    static inputs, which its next replay overwrites, so only the newest
+    carry may be kept. On the CPU this is `step` itself."""
+
+    def run(*args):
+        carry, batch = args[:n_carry], args[n_carry:]
+        flat = _carry_leaves(carry, carry)
+        n = len(flat)
+
+        def flat_step(*t):
+            *new, loss = step(*_carry_like(carry, t[:n]), *t[n:])
+            return (*_carry_leaves(new, carry), loss)
+
+        out = programs.run(key + tuple(tuple(x.shape) for x in batch), flat_step,
+                           *flat, *batch, donate=n)
+        return (*_carry_like(carry, out[:n]), out[n])
+
+    return run
 
 
 def _pad_batch(arrays: tuple, batch_size: int, n_dev: int = 1):
@@ -181,6 +281,7 @@ def _adam_to(opt_state, device):
     return opt_state
 
 
+@deterministic()
 def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
                    mesh=None, log_every: int = 1, checkpoint_path: str | None = None,
                    init_opt_state=None, history_path: str | None = None,
@@ -195,6 +296,9 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
     Sequence does. compute_dtype None/f32 = strict f32, bfloat16 = mixed
     precision (module docstring). fakequant: quantization-aware training
     (int8 fake-quant at the serving requant positions, straight-through).
+    Each step replays one captured program (key: "detector", the dtype,
+    fakequant, the batch shapes) unless a mesh is given; the whole call
+    runs under `deterministic()`.
 
     device_data: keep the whole stacked set (steps, batch, ...) on the card
     and slice it per step; None turns it on when it fits the
@@ -231,9 +335,9 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
     opt_state = _adam_replicated(opt_state, mesh)
     step = make_train_step(model, opt, compute_dtype=dtype, fakequant=fakequant,
                            group=mesh_lib.axis_group(mesh, "data"))
-    # The f32 contract: no TF32 in cuDNN convs or cuBLAS matmuls.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    if mesh is None:
+        step = program_step(ProgramCache(device, train=True),
+                            ("detector", str(dtype), fakequant), step, 3)
 
     def make_batch(i):
         padded = _pad_batch(dataset.batch(i, batch_size), batch_size, n_dev)
@@ -302,6 +406,7 @@ def _adam_replicated(opt_state, mesh, shardings=None):
                            nu=mesh_lib.put_tree(opt_state.nu, shardings, mesh))
 
 
+@deterministic()
 def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dict, *,
                      mesh=None, checkpoint_path: str | None = None, init_opt_state=None,
                      history_path: str | None = None, finalize_bn: bool = True,
@@ -323,7 +428,10 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
     device_data / checkpoint_every / the history: as `train_detector` (the
     stacked a/p/n crops are 3x the image bytes). finalize_bn re-estimates
     the BN statistics over the stacked [a; p; n] batches. epoch_times, when
-    given, receives each epoch's wall seconds.
+    given, receives each epoch's wall seconds. Steps replay one captured
+    program each (key: "identifier", the dtype, mining, remat, fakequant,
+    the batch shapes) unless a mesh is given; the call runs under
+    `deterministic()`.
 
     mesh: data parallelism over "data" as in `train_detector`, and with
     model_axis > 1 dense1's tensor parallelism over "model": this rank
@@ -350,8 +458,9 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
     opt_state = _adam_replicated(opt_state, mesh, pspec)
     step = make_triplet_step(model, opt, compute_dtype=dtype, mining=mining,
                              remat=remat, fakequant=fakequant, mesh=mesh)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    if mesh is None:
+        step = program_step(ProgramCache(device, train=True),
+                            ("identifier", str(dtype), mining, remat, fakequant), step, 3)
     semi = mining == "semi_hard"
 
     def make_batch(i):
