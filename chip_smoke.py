@@ -62,8 +62,14 @@ which raises on failure (exit code != 0):
 8. serve    — f32 test mode at image_size 1,056 (N = 1,089: the NMS mask in
               a device-memory workspace) on the card and on the CPU, CSVs
               compared (SERVE_*);
-9. calib    — msegrid calibration and PTQ bias correction at 416² on the
-              card vs the CPU port (CALIB_*);
+9. calib    — the quantization path's divisions by 127 on the same
+              host-made inputs, card vs CPU, torch.equal: the "auto" and
+              msegrid candidate grids, `_act_fq`'s scale and `_weight_fq`'s
+              kernel (with the count of scales the parent's `/ 127.0`
+              would put one ulp elsewhere on each device); msegrid
+              calibration and PTQ bias correction at 416² on the card vs
+              the CPU port (CALIB_*); in phase 17's process, "auto" on
+              phase 14's checkpoint card vs CPU (printed, not gated);
 10. train   — one f32 train step at b2 416², card vs CPU port (STEP_*);
               train_detector on a seeded synthetic set (TRAIN_*): f32 b32
               through the CLI's mode=train (TF32 off), bf16 mixed at b32 and
@@ -102,10 +108,23 @@ which raises on failure (exit code != 0):
               card vs CPU (HEAD_TOL), reconstruct card vs CPU (RECON_TOL);
               detect_coco ms per image at each precision on a
               device-resident input, its kernel launches per int8 image
-              (35 A0, 20 A, 1 B), B at (80, 256) and reconstruct ms.
+              (35 A0, 20 A, 1 B), B at (80, 256) and reconstruct ms;
+              then `YOLOV3` at f32 and bf16 over the two JPEGs twice and a
+              second image of the first one's shape, which must reuse its
+              program (B must move under replay: `launches_coco_replay`),
+              each replay torch.equal to the eager program, ms an image
+              eager vs replay and the busy shares.
 13. deploy  — scale-out and deploy at world size 1 over NCCL and the
               exported artifacts in a fresh process (DEPLOY_*;
-              `launches_deploy`), the export CLI, the two routes timed;
+              `launches_deploy`), the export CLI, the two routes timed; the
+              mesh paths' programs with their collectives captured: the DP
+              int8 detect at b32 (A0, A and B must move:
+              `launches_deploy_dp_replay`, added to `launches_deploy`) and
+              a DP ROI identify chunk, replay vs eager torch.equal; the
+              detector step at f32 and fake-quant b16 and the semi-hard
+              triplet step at b8 with the mesh, eager vs replay over 4
+              steps torch.equal on every carry tensor and loss; ms a call
+              and a step eager vs replay;
 14. release — the release loop through its tools (RELEASE_*): recipe v3
               at 416² on a seeded 160/40 set (plain epochs at 1e-3, then a
               fake-quant finetune --init-from them at 1e-4; epochs reached,
@@ -164,9 +183,11 @@ which raises on failure (exit code != 0):
               eager vs replay with deterministic algorithms on and off
               (f32 b16, f32 b32, fake-quant b16, bf16 b128) with peak
               memory, the busy share at f32 b16, triplets/s at bf16 b32,
-              distillation s a step. The training steps reach no kernel of
-              the port (`launches_train_programs`: 0); the serving phases
-              above launch and check all four.
+              distillation s a step; `finalize_bn_stats` through its
+              programs (one per batch shape) torch.equal to the eager
+              forwards, seconds of each. The training steps reach no
+              kernel of the port (`launches_train_programs`: 0); the
+              serving phases above launch and check all four.
 
 The last lines are the kernels' JSON record, the card's name and power limit
 as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -339,6 +360,13 @@ DEPLOY_BATCHES = (1, 3, 32)
 DEPLOY_TIMING = (("int8", 32), ("float32", 8))
 ROUTE_REPS = 10
 DEPLOY_TRAIN_LR = 1e-4
+# The mesh paths' programs at world size 1 (NCCL captured into the graphs):
+# the DP int8 detect batch, the DP ROI identify chunk's crops, the mesh
+# training steps (detector f32 and fake-quant at DEPLOY_MESH_B, semi-hard
+# triplets at DEPLOY_MESH_TRIPLET_B), eager vs replay over DEPLOY_MESH_STEPS.
+DEPLOY_DP_B = 32
+DEPLOY_ROI_BOXES = 16
+DEPLOY_MESH_B, DEPLOY_MESH_TRIPLET_B, DEPLOY_MESH_STEPS = 16, 8, 4
 # [release]: recipe v3 at full width and reduced scale (a seeded set of
 # RELEASE_TRAIN/RELEASE_VAL 416² JPEGs, RELEASE_PLAIN plain epochs then
 # RELEASE_FT fake-quant epochs at 1e-4), the tail pinned over RELEASE_TAILS,
@@ -411,6 +439,7 @@ TP_TIMING = (("f32", torch.float32, False, 16), ("f32", torch.float32, False, 32
 TP_TIMING_STEPS, TP_TIMING_WINDOWS = 3, 2
 TP_TRIPLET_TIMING_B = 32
 TP_LR = 1e-4
+TP_RECAL_B = 24  # finalize_bn_stats: 160 images = 6 batches of 24 and one of 16
 TP_QAT_LR, TP_QAT_TAIL = 1e-5, 4
 # Published dense peaks of one H100 SXM at 700 W and its memory rate.
 PEAK_INT8 = 1979e12  # int8 tensor-core operations / s
@@ -1249,8 +1278,80 @@ def serve_large(tmp, fdm, card, rng) -> int:
     return launches
 
 
+def calib_quotients(dev) -> dict:
+    """The quantization path's divisions by 127 (phase 9) on the same
+    host-made inputs on the card and on the CPU: the "auto" and msegrid
+    candidate grids (`quant.auto_grid`, `msegrid_grid`: the jitted JAX
+    walk's product with f32(1/127)) and the training fake-quant's scales
+    (`darknet._act_fq` on seeded activations at the trunk's shapes,
+    `darknet._weight_fq` on seeded kernels of every trunk conv: the f32
+    quotient, `darknet.div_127`), each torch.equal card vs CPU. Counts the
+    elements the parent's form (`t / 127.0`) puts elsewhere on each device:
+    the card's is the reciprocal product, the CPU's the quotient."""
+    from face_vijnana_yolov3_tpu_torch.models import darknet, quant
+
+    gen = np.random.default_rng(SEED + 30)
+
+    def maxabs_like(*shape):
+        return torch.from_numpy((np.abs(gen.standard_normal(shape))
+                                 * 10.0 ** gen.uniform(-3, 2, shape)).astype(np.float32))
+
+    def parent_moved(t, new, d):
+        """Elements of `new` that the parent's `t / 127.0` on device d misses."""
+        return int((t.to(d) / 127.0).cpu().ne(new).sum())
+
+    cands, m = maxabs_like(3, 1024), maxabs_like(4096)
+    ratios = torch.from_numpy(quant.msegrid_ratios().astype(np.float32))
+    sites = {}
+    grids = (("auto grid", lambda d: quant.auto_grid(cands.to(d)),
+              torch.clamp_min(cands, 1e-8)),
+             ("msegrid grid", lambda d: quant.msegrid_grid(m.to(d), ratios.to(d)),
+              torch.clamp_min(m, 1e-8)[None, :] * ratios[:, None]))
+    for name, fn, numer in grids:
+        got, want = fn(dev).cpu(), fn("cpu")
+        sites[name] = (torch.equal(got, want), want.numel(), parent_moved(numer, want, dev),
+                       parent_moved(numer, want, "cpu"))
+    shapes = [(2, c, IMAGE_SIZE // r, IMAGE_SIZE // r)
+              for c, r in ((32, 1), (64, 2), (128, 4), (256, 8), (512, 16), (1024, 32))]
+    act = [0, 0, 0, 0, True]
+    for shape in shapes:
+        h = (torch.from_numpy(gen.standard_normal(shape).astype(np.float32))
+             * maxabs_like(shape[1])[None, :, None, None])
+        v_dev, s_dev = darknet._act_fq(h.to(dev))
+        v_cpu, s_cpu = darknet._act_fq(h)
+        act[4] &= torch.equal(s_dev.cpu(), s_cpu) and torch.equal(v_dev.cpu(), v_cpu)
+        numer = torch.clamp_min(h.abs().amax(dim=(0, 2, 3)), 1e-6)
+        act[1] += s_cpu.numel()
+        act[2] += parent_moved(numer, s_cpu, dev)
+        act[3] += parent_moved(numer, s_cpu, "cpu")
+    sites["_act_fq scale"] = (act[4], act[1], act[2], act[3])
+    wfq = [True, 0, 0, 0]
+    for _idx, cin, cout, k, _stride, _bn in darknet.conv_layout(darknet.trunk_graph()):
+        kern = torch.from_numpy(gen.normal(0, 0.1, (cout, cin, k, k)).astype(np.float32))
+        s_in = darknet.div_127(maxabs_like(cin))
+        got = darknet._weight_fq(kern.to(dev), s_in.to(dev)).cpu()
+        want = darknet._weight_fq(kern, s_in)
+        wfq[0] &= torch.equal(got, want)
+        numer = torch.clamp_min((kern * s_in[None, :, None, None]).abs().amax(dim=(1, 2, 3)),
+                                1e-8)
+        w_scale = darknet.div_127(numer)
+        wfq[1] += w_scale.numel()
+        wfq[2] += parent_moved(numer, w_scale, dev)
+        wfq[3] += parent_moved(numer, w_scale, "cpu")
+    sites["_weight_fq w_scale"] = tuple(wfq)
+    for name, (equal, n, moved_dev, moved_cpu) in sites.items():
+        print(f"[calib] {name}, card vs CPU on the same host-made inputs: torch.equal "
+              f"{equal} over {n} scales; the parent's `/ 127.0` would put {moved_dev} of "
+              f"them elsewhere on the card, {moved_cpu} on the CPU")
+    if not all(v[0] for v in sites.values()):
+        raise AssertionError("[calib] a division by 127 differs between card and CPU")
+    return {name: {"elements": v[1], "parent_moved_card": v[2], "parent_moved_cpu": v[3]}
+            for name, v in sites.items()}
+
+
 def calib_phase(card, dev, rng):
-    """int8 calibration on the card vs the CPU port: msegrid scales (rtol
+    """int8 calibration on the card vs the CPU port: the divisions by 127
+    (`calib_quotients`, whose counts it returns), msegrid scales (rtol
     CALIB_SCALE_RTOL: each position's max comes from f32 forwards whose
     convs sum in another order), then bias correction on the CPU's msegrid
     scales: kernel_q and w_scale bit-identical, biases within
@@ -1259,6 +1360,7 @@ def calib_phase(card, dev, rng):
     from face_vijnana_yolov3_tpu_torch.models import darknet, quant
     from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
 
+    quotients = calib_quotients(dev)
     model = FaceDetectorModel(image_size=IMAGE_SIZE, device="cpu")
     params, state = model.init_params(SEED + 2)
     darknet.perturb_batchnorm(params, state, model.ops, SEED + 3)
@@ -1309,6 +1411,7 @@ def calib_phase(card, dev, rng):
           f"{CALIB_BIAS_FRACTION}); card {dev_s:.2f} s")
     if worst_rel > CALIB_BIAS_FRACTION:
         raise AssertionError("[calib] bias-corrected biases differ between card and CPU")
+    return quotients
 
 
 def profile_split(fn, steps: int) -> dict:
@@ -2202,6 +2305,7 @@ def coco_phase(tmp, card, dev):
                "nms_plain_ms_80x256": float(np.median(nms_plain)),
                "nms_bound_ms_80x256": nms_bound, "nms_bound_by_80x256": nms_bound_by,
                "max_abs_err": {**err, "nms_sweep": nms_err}}
+    metrics.update(coco_programs(root, weights, jpegs, card, dev))
     for precision in COCO_PRECISIONS:
         program = yd.coco_forward(sd_dev, precision, dev, x_calib=x)
 
@@ -2257,6 +2361,92 @@ def coco_phase(tmp, card, dev):
     del fi, sd_dev  # qp lives on in the returned detect8
     torch.cuda.empty_cache()
     return launches, metrics, detect8_on
+
+def coco_programs(root, weights, jpegs, card, dev) -> dict:
+    """The COCO demo's programs (phase 12): `YOLOV3` at f32 and bf16 over
+    the two JPEGs twice each and a second image of the first one's shape
+    (detect_person, which replays one program per image shape and
+    thresholds), the launch counts zeroed just before and read just after
+    (B must move: `launches_coco_replay`); the second image must reuse its
+    key. Then each replay `torch.equal` to the eager program on the same
+    device input, and ms an image eager vs replay on a device-resident
+    input with the busy share of each."""
+    from face_vijnana_yolov3_tpu_torch import kernels
+    from face_vijnana_yolov3_tpu_torch.api import yolov3_detect as yd
+    from face_vijnana_yolov3_tpu_torch.ops.nms_sweep import nms_sweep
+    from face_vijnana_yolov3_tpu_torch.ops.postprocess import coco_postprocess
+
+    S = COCO_SIZE
+    h0, w0 = COCO_JPEGS[0]
+    twin = os.path.join(root, "coco_twin.jpg")
+    Image.fromarray(np.random.default_rng(SEED + 26).integers(
+        0, 256, (h0, w0, 3), dtype=np.uint8)).save(twin)
+    images = [imread(f) for f in (*jpegs, *jpegs, twin)]
+    kw = dict(obj_thresh=0.5, cls_thresh=0.0, nms_thresh=COCO_NMS_TH,
+              human_entropy_thresh=100.0, bottle_entropy_thresh=100.0)
+    metrics = {}
+    for precision in ("float32", "bfloat16"):
+        model = yd.YOLOV3(weights, precision=precision, net_size=S, device=dev)
+        # The path: counts zeroed just before it, read just after it.
+        for k in kernels.LAUNCH_COUNTERS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        for image in images[:-1]:
+            model.detect_person(image, **kw)
+        keys = model.programs.keys()
+        model.detect_person(images[-1], **kw)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.LAUNCH_COUNTERS}
+        metrics[f"launches_replay_{precision}"] = launches
+        if set(model.programs.keys()) != set(keys) or len(keys) != len(jpegs):
+            raise AssertionError(f"[coco] YOLOV3 {precision}: keys {keys} then "
+                                 f"{model.programs.keys()}")
+        if launches["nms_sweep"] == 0:
+            raise AssertionError(f"[coco] YOLOV3 {precision}: B never launched")
+        # Replay vs the eager program on the same device input.
+        for image in images[:len(jpegs)]:
+            args = ("", image, 0.5, COCO_NMS_TH, precision, S)
+            got = yd.detect_coco(*args, device=dev, forward=model._forward,
+                                 programs=model.programs)
+            want = yd.detect_coco(*args, device=dev, forward=model._forward)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want, strict=True)):
+                raise AssertionError(f"[coco] YOLOV3 {precision} {image.shape}: the "
+                                     "replay differs from the eager program")
+        h, w = images[0].shape[:2]
+        x = torch.from_numpy(yd.preprocess_coco(images[0], S, S)).to(dev)
+        key = ("coco", precision, S, h, w, 0.5, float(COCO_NMS_TH))
+
+        def run(t, model=model, h=h, w=w):
+            return coco_postprocess(tuple(o[0] for o in model._forward(t)), h, w, 0.5,
+                                    COCO_NMS_TH, net_h=S, net_w=S)
+
+        def eager(run=run):
+            with torch.inference_mode():
+                return run(x)
+
+        def replay(model=model, key=key, run=run):
+            return model.programs.run(key, run, x)
+
+        ms = {m: cuda_ms(fn, COCO_TIMING_REPS, warmup=2)
+              for m, fn in (("eager", eager), ("replay", replay))}
+        for m, v in ms.items():
+            metrics[f"yolov3_ms_{precision}_{m}"] = float(np.median(v))
+        busy = trace_text(metrics, f"yolov3_{precision}", eager, replay)
+        print(f"[coco] YOLOV3 {precision} at {S}²: {len(images)} images ({len(keys)} "
+              f"programs, keys {keys}; the second {h0}x{w0} image reused its key) in "
+              f"{path_s:.2f} s, launches {launches}; each replay torch.equal to the eager "
+              f"program; ms an image on a device-resident input on {card}: eager "
+              f"{quartiles(ms['eager'])}, replay {quartiles(ms['replay'])}; {busy}")
+        del model, x
+        torch.cuda.empty_cache()
+    metrics["launches_coco_replay"] = {
+        k: sum(metrics[f"launches_replay_{p}"][k] for p in ("float32", "bfloat16"))
+        for k in metrics["launches_replay_float32"]}
+    if nms_sweep.__name__ not in metrics["launches_coco_replay"]:
+        raise AssertionError("[coco] nms_sweep is not a registered kernel")
+    return metrics
+
 
 _DEPLOY_LOADER = r"""
 import json
@@ -2481,6 +2671,9 @@ def deploy_phase(tmp, card, dev, rng, coco_detect8):
             raise AssertionError("[deploy] the mesh triplet step disagrees with one process")
         del idm, ip, ist, tri, feeds
         torch.cuda.empty_cache()
+        dp_launches, dp_metrics = mesh_programs(mesh, fd8, conf, sd, rng, card, dev)
+        metrics.update(dp_metrics)
+        metrics["dp_replay_launches"] = dp_launches
 
         # detect_spatial at world size 1 vs the f32 head.
         xd = torch.from_numpy(xs[3]).to(dev)
@@ -2525,9 +2718,11 @@ def deploy_phase(tmp, card, dev, rng, coco_detect8):
               f"or jax there: {loaded['modules']}")
         if loaded["modules"]:
             raise AssertionError("[deploy] the loader imported more than it needs")
-        launches = loaded["int8_launches"]
-        if dev.type == "cuda" and min(launches.values()) == 0:  # (the CPU counts none)
-            raise AssertionError(f"[deploy] the int8 artifact skipped a kernel: {launches}")
+        art_launches = loaded["int8_launches"]
+        if dev.type == "cuda" and min(art_launches.values()) == 0:  # (the CPU counts none)
+            raise AssertionError(f"[deploy] the int8 artifact skipped a kernel: "
+                                 f"{art_launches}")
+        launches = {k: v + dp_launches.get(k, 0) for k, v in art_launches.items()}
         for b, x, (ac, an), (fc, fn), (emb, idx, dist_) in zip(
                 DEPLOY_BATCHES, xs.values(), loaded["int8"], loaded["f32"],
                 loaded["identify"]):
@@ -2614,6 +2809,150 @@ def deploy_phase(tmp, card, dev, rng, coco_detect8):
     metrics["artifact_mib"] = sizes
     return launches, metrics
 
+
+
+def mesh_programs(mesh, fd8, conf, sd, rng, card, dev) -> tuple[dict, dict]:
+    """The mesh paths' programs at world size 1 over NCCL (phase 13; the
+    collectives captured into the graphs): the DP int8 detect at
+    DEPLOY_DP_B with the blocks on, the launch counts zeroed just before
+    and read just after (A0, A and B must move), its replays and a DP ROI
+    identify chunk's (f32, DEPLOY_ROI_BOXES crops on two frames) against
+    their eager programs (torch.equal); the detector step at f32 and
+    fake-quant and the semi-hard triplet step with the mesh, eager vs replay
+    over DEPLOY_MESH_STEPS steps under deterministic algorithms (every carry
+    tensor and loss torch.equal, one captured graph each); ms a call and a
+    step eager vs replay with the busy shares. Returns (launches, metrics)."""
+    from face_vijnana_yolov3_tpu_torch import kernels
+    from face_vijnana_yolov3_tpu_torch.api import face_identification as fim
+    from face_vijnana_yolov3_tpu_torch.convert import identifier_params_from_jax
+    from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache
+    from face_vijnana_yolov3_tpu_torch.models import darknet
+    from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
+    from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
+    from face_vijnana_yolov3_tpu_torch.ops import roi
+    from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
+    from face_vijnana_yolov3_tpu_torch.parallel.serving import detect_quant_dp, identify_roi_dp
+    from face_vijnana_yolov3_tpu_torch.train import optimizer, trainer
+
+    S = IMAGE_SIZE
+    metrics: dict = {}
+    x = torch.from_numpy(rng.uniform(size=(DEPLOY_DP_B, S, S, 3)).astype(np.float32)).to(dev)
+    dp = detect_quant_dp(fd8.model, mesh, fd8._qparams, postprocess_cfg=fd8._pp_cfg,
+                         fused_blocks=True)
+    for k in kernels.LAUNCH_COUNTERS:
+        k.launches = 0
+    outs = [dp(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.LAUNCH_COUNTERS}
+    with torch.inference_mode():
+        want = dp.program(x)
+    same = all(torch.equal(a, b) for o in outs for a, b in zip(o, want, strict=True))
+    print(f"[deploy] DP int8 detect b={DEPLOY_DP_B} (blocks on), mesh key "
+          f"{dp.programs.keys()}: 3 calls, launches {launches}; replay torch.equal to the "
+          f"eager program {same}")
+    if not same:
+        raise AssertionError("[deploy] the DP detect replay differs from its eager program")
+    if min(launches[k] for k in ("conv_int8", "block_int8", "nms_sweep")) == 0:
+        raise AssertionError(f"[deploy] the DP detect replay skipped a kernel: {launches}")
+    ms = {"eager": cuda_ms(lambda: dp.program(x), ROUTE_REPS, warmup=2),
+          "replay": cuda_ms(lambda: dp(x), ROUTE_REPS, warmup=2)}
+    for m, v in ms.items():
+        metrics[f"dp_detect_b{DEPLOY_DP_B}_{m}_ms"] = float(np.median(v))
+    busy = trace_text(metrics, f"dp_detect_b{DEPLOY_DP_B}", lambda: dp.program(x),
+                      lambda: dp(x))
+    print(f"[deploy] DP int8 detect b={DEPLOY_DP_B} on {card}: eager "
+          f"{quartiles(ms['eager'])}, replay {quartiles(ms['replay'])}; {busy}")
+    del dp, outs, want, x
+
+    # A DP ROI identify chunk: the windows of DEPLOY_ROI_BOXES faces on two
+    # 480x640 frames, one bucket.
+    fi = fim.FaceIdentifierPipeline(conf, precision="float32")
+    bh, bw = 480, 640
+    staged = torch.from_numpy(rng.integers(0, 256, (2, bh, bw, 3)).astype(np.uint8)).to(dev)
+    wins = [(int(rng.integers(0, 300)), int(rng.integers(0, 450)),
+             int(rng.integers(40, 170)), int(rng.integers(40, 170)))
+            for _ in range(DEPLOY_ROI_BOXES)]
+    wh = roi.window_bucket(max(w[2] for w in wins), bh)
+    ww = roi.window_bucket(max(w[3] for w in wins), bw)
+    origins = np.array([(k % 2, min(y0, bh - wh), min(x0, bw - ww))
+                        for k, (y0, x0, _, _) in enumerate(wins)], np.int32)
+    packed = torch.from_numpy(roi.pack_roi_operands(
+        origins, *roi.stack_roi_taps(wins, S, origins[:, 1:]))[None]).to(dev)
+    reg = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(10, fi.model.dense1_dim)).astype(np.float32)), dim=1).to(dev)
+    ident = identify_roi_dp(fi._embed_program, mesh, image_size=S, window_h=wh, window_w=ww)
+    rows = [ident(staged, packed, reg) for _ in range(2)]
+    with torch.inference_mode():
+        want = ident.program(staged, packed, reg)
+    same = all(torch.equal(r, want) for r in rows)
+    ms = {"eager": cuda_ms(lambda: ident.program(staged, packed, reg), ROUTE_REPS, warmup=2),
+          "replay": cuda_ms(lambda: ident(staged, packed, reg), ROUTE_REPS, warmup=2)}
+    for m, v in ms.items():
+        metrics[f"dp_roi_{m}_ms"] = float(np.median(v))
+    busy = trace_text(metrics, "dp_roi", lambda: ident.program(staged, packed, reg),
+                      lambda: ident(staged, packed, reg))
+    print(f"[deploy] DP ROI identify chunk, {DEPLOY_ROI_BOXES} crops (window {wh}x{ww}) "
+          f"f32: replay torch.equal to the eager program {same}; on {card}: eager "
+          f"{quartiles(ms['eager'])}, replay {quartiles(ms['replay'])}; {busy}")
+    if not same:
+        raise AssertionError("[deploy] the DP ROI replay differs from its eager program")
+    del ident, fi, staged, rows, want
+    torch.cuda.empty_cache()
+
+    # The mesh training steps, eager vs replay.
+    grid, b = S // 32, DEPLOY_MESH_B
+    model = FaceDetectorModel(image_size=S, device=dev)
+    p0, s0 = darknet.split_state_dict({k: v.to(dev) for k, v in sd.items()})
+    group = mesh_lib.axis_group(mesh, "data")
+    feeds = [(torch.from_numpy(rng.uniform(size=(b, S, S, 3)).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.uniform(size=(b, grid, grid, 6)).astype(np.float32))
+              .to(dev), torch.ones(b, device=dev)) for _ in range(DEPLOY_MESH_STEPS)]
+    idm = FaceIdentifierModel(image_size=S, device=dev)
+    ip, ist = idm.init_params(SEED + 15)
+    darknet.perturb_batchnorm(ip, ist, idm.ops, SEED + 16)
+    ip, ist = darknet.split_state_dict({k: v.to(dev) for k, v in
+                                        identifier_params_from_jax(ip, ist).items()})
+    tb = DEPLOY_MESH_TRIPLET_B
+    sa = torch.arange(tb, dtype=torch.int32, device=dev)
+    tfeeds = [(*(torch.from_numpy(rng.uniform(size=(tb, S, S, 3)).astype(np.float32))
+                 .to(dev) for _ in range(3)), torch.ones(tb, device=dev), sa, (sa + 1) % tb)
+              for _ in range(DEPLOY_MESH_STEPS)]
+    opt = optimizer.KerasAdam(DEPLOY_TRAIN_LR)
+    cases = [(f"detector {label} b={b}", ("detector", "torch.float32", fq),
+              trainer.make_train_step(model, opt, fakequant=fq, group=group), (p0, s0), feeds)
+             for label, fq in (("f32", False), ("fake-quant", True))]
+    cases.append((f"semi-hard triplet b={tb}",
+                  ("identifier", "torch.float32", "semi_hard", False, False),
+                  trainer.make_triplet_step(idm, opt, mining="semi_hard", mesh=mesh),
+                  (ip, ist), tfeeds))
+    for name, key, step, (params, state), case_feeds in cases:
+        carry0 = (params, state, opt.init(params))
+        programs = ProgramCache(dev, train=True)
+        replay = trainer.program_step(programs, key + mesh_lib.mesh_key(mesh), step, 3)
+        with trainer.deterministic():
+            want, w_losses = _run_steps(step, carry0, case_feeds)
+            got, g_losses = _run_steps(replay, carry0, case_feeds)
+            torch.cuda.synchronize()
+            # Before the timing: its replays overwrite the program's carry.
+            diff, total = _carry_diff(got, want)
+            same_loss = all(torch.equal(a, c) for a, c in zip(g_losses, w_losses))
+            ms = {"eager": _step_ms(step, carry0, case_feeds),
+                  "replay": _step_ms(replay, carry0, case_feeds)}
+        tag = name.split(" b=")[0].replace(" ", "_")
+        for m, v in ms.items():
+            metrics[f"mesh_{tag}_{m}_ms"] = float(np.median(v))
+        print(f"[deploy] mesh {name} at {S}², {DEPLOY_MESH_STEPS} steps, eager vs replay "
+              f"(key {programs.keys()[0][:-3]}...): {diff} of {total} param/BN/Adam "
+              f"tensors differ, losses equal {same_loss}; one captured graph "
+              f"{_one_graph(programs)}; ms a step on {card}: eager "
+              f"{quartiles(ms['eager'])}, replay {quartiles(ms['replay'])}")
+        if diff or not same_loss or not _one_graph(programs):
+            raise AssertionError(f"[deploy] mesh {name}: replay != eager")
+        del programs, replay, want, got
+        torch.cuda.empty_cache()
+    del model, idm, feeds, tfeeds, p0, s0, ip, ist
+    torch.cuda.empty_cache()
+    return launches, metrics
 
 
 def _epoch_means(losses: list[float], epochs: int) -> tuple[float, float]:
@@ -3720,6 +4059,63 @@ def train_programs_phase(tmp, card, dev):
           f"replay {rec['replay']['triplets_s']:.1f} ({quartiles(rec['replay']['ms'])}, "
           f"peak {rec['replay']['peak_gib']:.1f} GiB)")
     del feeds, step, fi_model
+    torch.cuda.empty_cache()
+
+    # (g) finalize_bn_stats: one inference program a batch shape (the JAX
+    # `recal`) vs the same forwards run eagerly.
+    class Eager(ProgramCache):
+        def run(self, key, fn, *inputs, donate=0):
+            with self._mode():
+                return fn(*inputs)
+
+    recal = {}
+    for path in ("eager", "replay"):
+        trainer.ProgramCache = Eager if path == "eager" else ProgramCache
+        try:
+            t0 = time.perf_counter()
+            recal[path] = trainer.finalize_bn_stats(model, p0, s0, ds, TP_RECAL_B)
+            torch.cuda.synchronize()
+            rates[f"finalize_bn_s_{path}"] = time.perf_counter() - t0
+        finally:
+            trainer.ProgramCache = ProgramCache
+    diff = sum(not torch.equal(recal["eager"][k], v) for k, v in recal["replay"].items())
+    print(f"[train-programs] finalize_bn_stats over phase 14's {n} images at b="
+          f"{TP_RECAL_B} ({ds.steps(TP_RECAL_B)} batches, the last of "
+          f"{n - (ds.steps(TP_RECAL_B) - 1) * TP_RECAL_B}) on {card}: {diff} of "
+          f"{len(recal['eager'])} statistics differ, replay vs eager; eager "
+          f"{rates['finalize_bn_s_eager']:.2f} s, programs {rates['finalize_bn_s_replay']:.2f} s "
+          f"(the two captures included)")
+    if diff:
+        raise AssertionError("[train-programs] finalize_bn_stats: replay != eager")
+    del recal
+
+    # (h) "auto" calibration of phase 14's checkpoint on the first
+    # CALIB_IMAGES images of its calibration batch (the CPU's f32 forward
+    # at 416² takes ~8 s an image), card vs CPU: the forwards differ in
+    # their sums, so the choices and the int8 weights are printed, not gated.
+    fd = FaceDetectorModel(image_size=S, device=dev)
+    fd.load_state_dict(load_checkpoint(os.path.join(work, "fd_ckpt_qat.pt")))
+    folded = fd.fold()
+    folded_cpu = {k: {m: t.cpu() for m, t in v.items()} for k, v in folded.items()}
+    x_auto = images[:CALIB_IMAGES]
+    auto = {d: quant.calibrate_folded(f, torch.from_numpy(x_auto).to(d), fd.ops,
+                                      percentile="auto")
+            for d, f in ((dev, folded), ("cpu", folded_cpu))}
+    same_ch = sum(int((a == b).sum()) for a, b in zip(auto[dev], auto["cpu"]))
+    total_ch = sum(b.size for b in auto["cpu"])
+    q = {d: quant.quantize_folded(f, None, fd.ops, act_scales=auto[d])
+         for d, f in ((dev, folded), ("cpu", folded_cpu))}
+    convs = [k for k in q["cpu"] if k.startswith("conv_")]
+    same_k = sum(torch.equal(q[dev][k]["kernel_q"].cpu(), q["cpu"][k]["kernel_q"])
+                 for k in convs)
+    rates["auto_channels_equal"] = [same_ch, total_ch]
+    rates["auto_kernels_q_equal"] = [same_k, len(convs)]
+    print(f"[calib] \"auto\" calibration of phase 14's checkpoint on the first "
+          f"{CALIB_IMAGES} images of its calibration batch, card vs CPU (printed, not "
+          f"gated: the f32 forwards sum in other "
+          f"orders): {same_ch} of {total_ch} channel scales equal; int8 kernels equal "
+          f"in {same_k} of {len(convs)} convs")
+    del folded_cpu, folded, fd, auto, q
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels.LAUNCH_COUNTERS}
     print(f"[train-programs] kernel launches of the phase {launches} (the training "
@@ -4013,7 +4409,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         serve_large(tmp, fdm, card, rng)
         print(f"[serve] done at {time.perf_counter() - t_start:.0f} s")
-        calib_phase(card, dev, rng)
+        calib_rates = calib_phase(card, dev, rng)
         print(f"[calib] done at {time.perf_counter() - t_start:.0f} s")
         train_rates, train_launches = train_phase(tmp, fdm, card, dev)
         print(f"[train] done at {time.perf_counter() - t_start:.0f} s")
@@ -4068,7 +4464,9 @@ def main() -> int:
         "library_ms": None,
         "launches_identify": fi_launches["nms_sweep"],
         "launches_coco": coco_launches["nms_sweep"],
+        "launches_coco_replay": coco_rates["launches_coco_replay"]["nms_sweep"],
         "launches_deploy": deploy_launches["nms_sweep"],
+        "launches_deploy_dp_replay": deploy_rates["dp_replay_launches"]["nms_sweep"],
         "launches_release": release_launches["nms_sweep"],
         "launches_programs": programs_launches.get("nms_sweep", 0),
         "launches_modes": modes_launches.get("nms_sweep", 0),
@@ -4099,7 +4497,9 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "launches_identify": fi_launches[name],
             "launches_coco": coco_launches[name],
+            "launches_coco_replay": coco_rates["launches_coco_replay"].get(name, 0),
             "launches_deploy": deploy_launches.get(name, 0),
+            "launches_deploy_dp_replay": deploy_rates["dp_replay_launches"].get(name, 0),
             "launches_release": release_launches[name],
             "launches_programs": programs_launches.get(name, 0),
             "launches_modes": modes_launches.get(name, 0),
@@ -4115,6 +4515,7 @@ def main() -> int:
     print(json.dumps({"train_img_s": {k: {"img_s": v[0], "batch": v[1], "peak_gib": v[2]}
                                       for k, v in train_rates.items()},
                       "trained_serving_launches": train_launches}))
+    print(json.dumps({"calib_divisions": calib_rates}))
     print(json.dumps({"identify": fi_rates, "identify_launches": fi_launches}))
     print(json.dumps({"coco": coco_rates, "coco_launches": coco_launches}))
     print(json.dumps({"deploy": deploy_rates, "deploy_launches": deploy_launches}))

@@ -27,6 +27,13 @@ where the JAX demo uses XLA):
 The postprocess (ops/postprocess.coco_postprocess) runs its 80-class NMS as
 one launch of kernel B (csrc/nms_sweep.cu) over a (80, 256) batch, where
 the JAX demo runs the same sweep as an XLA loop.
+
+Programs: the JAX demo jits its forward and postprocess as one program.
+Here `YOLOV3`, where images recur, keeps a `core/programs.ProgramCache`
+and replays the f32 or bf16 forward with `coco_postprocess` as one CUDA
+graph per (image shape, thresholds) (`detect_coco(..., forward=,
+programs=)`). The `-w` CLI detects one image and runs eagerly, as does
+int8, which calibrates on each image.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from face_vijnana_yolov3_tpu_torch.api.face_detection import resolve_device
+from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache
 from face_vijnana_yolov3_tpu_torch.models import darknet, quant
 from face_vijnana_yolov3_tpu_torch.ops.postprocess import coco_postprocess
 
@@ -152,18 +160,44 @@ def detect_coco(
     net_size: int = 416,
     params_state: dict | None = None,
     device: torch.device | str | None = None,
+    *,
+    forward=None,
+    programs: ProgramCache | None = None,
 ):
     """Full-image COCO detection on `device` (the card when None); returns
     numpy (boxes, objness, classes, valid). `params_state` is a state dict
-    from `load_yolov3_params` (then `weights_path` is not read)."""
+    from `load_yolov3_params` (then `weights_path` is not read).
+
+    forward: a `coco_forward` of this precision built by the caller once
+    (weights moved and folded once); None builds one for the call (int8
+    calibrates it on the image). programs: a cache of the caller's, where
+    images recur: the f32 and bf16 forward and `coco_postprocess` replay
+    as one captured program (the JAX demo's jitted `run`), key ("coco",
+    precision, net size, image_h, image_w, obj_thresh, nms_thresh). It
+    needs `forward`, whose weights the program reads, and takes no int8:
+    the int8 forward is calibrated on each image, so its program would run
+    once."""
     dev = resolve_device(device)
-    sd = params_state if params_state is not None else load_yolov3_params(weights_path)
     image_h, image_w = image.shape[:2]
     x = torch.from_numpy(preprocess_coco(image, net_size, net_size)).to(dev)
-    heads = coco_forward(sd, precision, dev, x_calib=x)(x)
-    with torch.inference_mode():
-        out = coco_postprocess(tuple(h[0] for h in heads), image_h, image_w,
-                               obj_thresh, nms_thresh, net_h=net_size, net_w=net_size)
+    if programs is not None and (forward is None or precision == "int8"):
+        raise ValueError("detect_coco: a program cache takes a prebuilt f32 or bf16 "
+                         "forward")
+    if forward is None:
+        sd = params_state if params_state is not None else load_yolov3_params(weights_path)
+        forward = coco_forward(sd, precision, dev, x_calib=x)
+
+    def run(t):
+        return coco_postprocess(tuple(h[0] for h in forward(t)), image_h, image_w,
+                                obj_thresh, nms_thresh, net_h=net_size, net_w=net_size)
+
+    if programs is None:
+        with torch.inference_mode():
+            out = run(x)
+    else:
+        key = ("coco", precision, net_size, image_h, image_w, float(obj_thresh),
+               float(nms_thresh))
+        out = programs.run(key, run, x)
     return tuple(t.cpu().numpy() for t in out)
 
 
@@ -207,7 +241,10 @@ class YOLOV3:
 
     `model_path` accepts the legacy `yolov3_model.hd5`/`.h5` (Keras-layout
     weights h5) or a darknet `yolov3.weights`. The weights move to `device`
-    (the card when None) once.
+    (the card when None) once; at f32 and bf16 the forward is built once
+    (bf16 folds once) and every image replays one program of `programs`
+    per (image shape, thresholds) (`detect_coco`). int8 calibrates on each
+    image and runs eagerly.
     """
 
     def __init__(self, model_path: str = "yolov3_model.h5",
@@ -221,6 +258,10 @@ class YOLOV3:
         self.device = resolve_device(device)
         self.params_state = {k: v.to(self.device)
                              for k, v in load_yolov3_params(model_path).items()}
+        self._forward = self.programs = None
+        if precision != "int8":
+            self._forward = coco_forward(self.params_state, precision, self.device)
+            self.programs = ProgramCache(self.device)
 
     def _detect_boxes(self, image: np.ndarray, obj_thresh, nms_thresh):
         """BoundBox list in original-image coords (reference box API)."""
@@ -229,6 +270,7 @@ class YOLOV3:
         boxes, obj, classes, valid = detect_coco(
             "", image, obj_thresh, nms_thresh, self.precision,
             net_size=self.net_h, params_state=self.params_state, device=self.device,
+            forward=self._forward, programs=self.programs,
         )
         out = []
         for k in range(boxes.shape[0]):

@@ -73,6 +73,12 @@ this step does not have. A replay runs the kernels the warm-up ran, so it
 equals the eager step bit for bit where those kernels are deterministic
 (train/trainer.deterministic).
 
+A program may hold NCCL collectives (the mesh training steps, the DP
+serving functions, whose keys carry `parallel.mesh.mesh_key`): NCCL
+records them into the graph like any kernel. Their communicator must
+exist before the capture, which the warm-up call guarantees, and every
+rank must capture and replay the same keys in the same order.
+
 On the CPU (the tests) a program is the eager function itself: the keys,
 the buckets, the padding, the input checks and the carry's layout are the
 same, nothing is captured. On CUDA a capture or replay error raises

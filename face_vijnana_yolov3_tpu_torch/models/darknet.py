@@ -34,6 +34,14 @@ BN_MOMENTUM = 0.99  # Keras: moving = 0.99 * moving + 0.01 * batch
 LEAKY_ALPHA = 0.1
 
 
+def div_127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 as the f32 quotient on any device: divided by a 0-d tensor
+    on x's device. CUDA turns a division by a Python number into a product
+    with its f32 reciprocal, one ulp off the quotient on some elements; a
+    fill, not a host copy, so that a captured program holds it."""
+    return x / x.new_full((), 127.0)
+
+
 # ------------------------------------------------------------------ graph IR
 
 def _conv(idx, out_c, k=3, stride=1, bn=True, leaky=True):
@@ -408,17 +416,18 @@ def _wide(h: torch.Tensor) -> torch.Tensor:
 def _act_fq(h: torch.Tensor, group=None):
     """Per-channel int8 activation fake-quant of an NCHW activation with a
     straight-through gradient (darknet.py:254-267): s = max(batch maxabs,
-    1e-6) / 127, held constant; value hf + (clip(round(hf / s), ±127) * s -
-    hf), whose gradient is the identity. torch.round rounds half to even, as
-    jnp.round. With a data-parallel `group` the maxabs is the whole batch's
-    (a MAX over the group). Returns (f32 value, (C,) scale)."""
+    1e-6) / 127 (`div_127`, the f32 quotient), held constant; value hf +
+    (clip(round(hf / s), ±127) * s - hf), whose gradient is the identity.
+    torch.round rounds half to even, as jnp.round. With a data-parallel
+    `group` the maxabs is the whole batch's (a MAX over the group). Returns
+    (f32 value, (C,) scale)."""
     hf = _wide(h)
     amax = hf.detach().abs().amax(dim=(0, 2, 3))
     if group is not None:
         from face_vijnana_yolov3_tpu_torch.parallel.mesh import all_reduce_max_
 
         amax = all_reduce_max_(amax, group)
-    s = torch.clamp_min(amax, 1e-6) / 127.0
+    s = div_127(torch.clamp_min(amax, 1e-6))
     sb = s[:, None, None]
     q = torch.clamp(torch.round(hf / sb), -127.0, 127.0) * sb
     return hf + (q - hf).detach(), s
@@ -443,7 +452,7 @@ def _weight_fq(kernel: torch.Tensor, s_in: torch.Tensor | None) -> torch.Tensor:
     (darknet.py:270-292), straight-through; s_in None = no input scales."""
     k = _wide(kernel)
     k_eff = k * s_in[None, :, None, None] if s_in is not None else k
-    w_scale = torch.clamp_min(k_eff.detach().abs().amax(dim=(1, 2, 3)), 1e-8) / 127.0
+    w_scale = div_127(torch.clamp_min(k_eff.detach().abs().amax(dim=(1, 2, 3)), 1e-8))
     ws = w_scale[:, None, None, None]
     q = torch.clamp(torch.round(k_eff / ws), -127.0, 127.0) * ws
     k_fq = k_eff + (q - k_eff).detach()

@@ -109,11 +109,8 @@ def _fq_conv(h_fq: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, op: t
     x_int = _fq_int(h_fq, sc_in)
     k_eff = kernel * sc_in[0][None, :, None, None]
     amax = torch.clamp_min(k_eff.detach().abs().amax(dim=(1, 2, 3)), 1e-8)
-    # Divided by a tensor on amax's device: CUDA turns a division by a
-    # Python number into a product with its reciprocal, which rounds some
-    # scales one ulp away from quantize_folded's f32 quotient. A fill, not a
-    # host copy, so that a training program can capture it.
-    w_scale = amax / amax.new_full((), 127.0)
+    # quantize_folded's f32 quotient on the card too (darknet.div_127).
+    w_scale = darknet.div_127(amax)
     k_int = _ste_round_clip(k_eff / w_scale[:, None, None, None])
     acc = _int_valued_conv(x_int, k_int, stride)
     y = _Fma.apply(acc, w_scale, bias)

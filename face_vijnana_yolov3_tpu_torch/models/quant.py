@@ -82,6 +82,27 @@ def _percentiles(a: torch.Tensor, percentiles) -> torch.Tensor:
     return low_v * low_w[:, None] + high_v * high_w[:, None]
 
 
+# f32(1 / 127). The JAX package's calibration walks run jitted
+# (quant.py:157, :260), and XLA rewrites their grids' division by the
+# constant 127 into a product with its f32 reciprocal (tests/
+# test_torch_quant_quotients.py reads it in the compiled program). CUDA does
+# the same for a tensor divided by a Python number, the CPU divides; the
+# grids below write the product, so both devices compute the JAX walk's.
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def auto_grid(cands: torch.Tensor) -> torch.Tensor:
+    """The "auto" calibration's candidate scales max(cands, 1e-8) / 127, as
+    the JAX package's jitted walk computes them (quant.py:112)."""
+    return torch.clamp_min(cands, 1e-8) * INV_127
+
+
+def msegrid_grid(m: torch.Tensor, ratios: torch.Tensor) -> torch.Tensor:
+    """msegrid's (J, C) candidate scales max(m, 1e-8) * ratio_j / 127 for
+    the (C,) maxabs m, as the jitted walk computes them (quant.py:230)."""
+    return (torch.clamp_min(m, 1e-8)[None, :] * ratios[:, None]) * INV_127
+
+
 def _calib_stat(h: torch.Tensor, percentile) -> torch.Tensor:
     """Per-channel range statistic of one activation (quant.py:102-126)."""
     a = h.abs().reshape(-1, h.shape[-1]).float()
@@ -90,7 +111,7 @@ def _calib_stat(h: torch.Tensor, percentile) -> torch.Tensor:
     if percentile == "auto":
         cands = torch.cat([a.amax(dim=0, keepdim=True),
                            _percentiles(a, AUTO_CALIB_PERCENTILES)])  # (3, C)
-        s = torch.clamp_min(cands, 1e-8) / 127.0
+        s = auto_grid(cands)
         # |x| round-trip error == signed round-trip error, as in the JAX code.
         err = torch.stack([
             torch.mean(torch.square(
@@ -150,7 +171,7 @@ def _msegrid_stat(h: torch.Tensor, ratios: torch.Tensor) -> torch.Tensor:
     One candidate at a time, so no (J, N, C) tensor is ever made."""
     a = h.abs().reshape(-1, h.shape[-1]).float()
     m = a.amax(dim=0)
-    s = (torch.clamp_min(m, 1e-8)[None, :] * ratios[:, None]) / 127.0  # (J, C)
+    s = msegrid_grid(m, ratios)  # (J, C)
     err = torch.stack([
         torch.mean(torch.square(
             torch.round(a / s[j]).clamp(-127, 127) * s[j] - a), dim=0)

@@ -108,7 +108,11 @@ def decode_coco_scale(netout: torch.Tensor, scale_idx: int, obj_th: float,
     """
     grid = netout.shape[0]
     anchors = COCO_ANCHORS[scale_idx]
-    kept = list(KEPT_ANCHOR_IDS[scale_idx])
+    ids = KEPT_ANCHOR_IDS[scale_idx]
+    # A strided slice (each scale keeps one id, or two), not a list: a list
+    # index is a host tensor copied to the device, which a captured program
+    # cannot hold.
+    kept = slice(ids[0], ids[-1] + 1, ids[-1] - ids[0] or 1)
     dev = netout.device
 
     t = netout.reshape(grid, grid, 3, 85).to(torch.float32)
@@ -122,9 +126,9 @@ def decode_coco_scale(netout: torch.Tensor, scale_idx: int, obj_th: float,
 
     x = (cols + xy[..., 0]) * _recip(grid)
     y = (rows + xy[..., 1]) * _recip(grid)
-    aw = torch.tensor([anchors[2 * b] for b in range(3)], dtype=torch.float32, device=dev)
-    ah = torch.tensor([anchors[2 * b + 1] for b in range(3)], dtype=torch.float32,
-                      device=dev)
+    # Fills, not host copies (a captured program holds them).
+    aw = torch.stack([t.new_full((), float(anchors[2 * b])) for b in range(3)])
+    ah = torch.stack([t.new_full((), float(anchors[2 * b + 1])) for b in range(3)])
     w = aw * torch.exp(t[..., 2]) * _recip(net_w)
     h = ah * torch.exp(t[..., 3]) * _recip(net_h)
 

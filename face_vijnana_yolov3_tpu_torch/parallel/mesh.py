@@ -124,6 +124,17 @@ def axis_rank(mesh, axis: str) -> int:
     return 0 if mesh is None else mesh.get_local_rank(axis)
 
 
+def mesh_key(mesh) -> tuple:
+    """What a program key adds for a mesh: ("mesh", its (data, model)
+    shape, this rank's (data, model) coordinates); () without a mesh. Every
+    rank runs the same sequence of keys, so that each captures and replays
+    its collectives in the same order as the others."""
+    if mesh is None:
+        return ()
+    return ("mesh", (axis_size(mesh, "data"), axis_size(mesh, "model")),
+            (axis_rank(mesh, "data"), axis_rank(mesh, "model")))
+
+
 def axis_group(mesh, axis: str):
     """The process group of this rank's `axis` (None without a mesh: no
     collective runs). A one-rank axis keeps its group, so a world of one

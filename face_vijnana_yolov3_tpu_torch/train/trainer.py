@@ -31,11 +31,23 @@ apply_graph_train), while BN statistics, the loss, the master params and the
 Adam state stay f32. Explicit casts, not torch.autocast, whose op list is
 not the JAX program's.
 
-Programs: one process (mesh=None) runs each step through one captured
-training program (core/programs.py, `program_step`), as the JAX package
-runs one jitted step; `make_train_step` and `make_triplet_step` stay the
-eager steps a program captures. With a mesh the steps run eagerly: their
-collectives would have to stay outside the graph.
+Programs: each step runs through one captured training program
+(core/programs.py, `program_step`), as the JAX package runs one jitted
+step; `make_train_step` and `make_triplet_step` stay the eager steps a
+program captures. With a mesh the program holds the step's collectives
+too (NCCL captures them into the graph): the differentiable all-reduces
+of the BN moments and the loss, the fake-quant maxabs MAX, the semi-hard
+pool gather and the gradient sum, forward and backward. Their keys add
+the mesh's shape and this rank's coordinates (`mesh.mesh_key`). Three
+rules make that safe: the communicators exist before any capture (the
+broadcast of `mesh.replicated` makes the world's, the warm-up call before
+each capture runs every collective of the step once); autograd runs the
+backward's collectives on the stream of their forward, the capture
+stream; and every rank runs the same keys in the same order (the same
+global batches, padded alike), since a collective one rank replays and
+another does not would hang both. `finalize_bn_stats` replays one
+inference program per batch shape (the JAX `recal`). On the CPU (gloo
+included) a program is its eager step.
 
 Reproducibility: both loops (and models/qat.distill_folded) run under
 `deterministic()`, so two runs from the same seeds end on the same bits, as
@@ -297,8 +309,8 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
     precision (module docstring). fakequant: quantization-aware training
     (int8 fake-quant at the serving requant positions, straight-through).
     Each step replays one captured program (key: "detector", the dtype,
-    fakequant, the batch shapes) unless a mesh is given; the whole call
-    runs under `deterministic()`.
+    fakequant, `mesh.mesh_key`, the batch shapes); the whole call runs
+    under `deterministic()`.
 
     device_data: keep the whole stacked set (steps, batch, ...) on the card
     and slice it per step; None turns it on when it fits the
@@ -333,11 +345,10 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
                          else opt.init(params), device)
     params, state = mesh_lib.replicated((params, state), mesh)
     opt_state = _adam_replicated(opt_state, mesh)
-    step = make_train_step(model, opt, compute_dtype=dtype, fakequant=fakequant,
-                           group=mesh_lib.axis_group(mesh, "data"))
-    if mesh is None:
-        step = program_step(ProgramCache(device, train=True),
-                            ("detector", str(dtype), fakequant), step, 3)
+    step = program_step(ProgramCache(device, train=True),
+                        ("detector", str(dtype), fakequant, *mesh_lib.mesh_key(mesh)),
+                        make_train_step(model, opt, compute_dtype=dtype, fakequant=fakequant,
+                                        group=mesh_lib.axis_group(mesh, "data")), 3)
 
     def make_batch(i):
         padded = _pad_batch(dataset.batch(i, batch_size), batch_size, n_dev)
@@ -383,6 +394,9 @@ def train_detector(model, params: dict, state: dict, dataset, hps: dict, *,
 
     losses = [float(v) for v in torch.stack(losses).cpu()] if losses else []
     _write_history(history_path, losses)
+    # The step's program and its memory pool go before the recalibration
+    # captures its own; the carry lives outside the pool.
+    del step
     if finalize_bn:
         # Whole batches on every rank, as the JAX package's unsharded
         # recalibration; rank 0's result is kept everywhere.
@@ -430,7 +444,7 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
     the BN statistics over the stacked [a; p; n] batches. epoch_times, when
     given, receives each epoch's wall seconds. Steps replay one captured
     program each (key: "identifier", the dtype, mining, remat, fakequant,
-    the batch shapes) unless a mesh is given; the call runs under
+    `mesh.mesh_key`, the batch shapes); the call runs under
     `deterministic()`.
 
     mesh: data parallelism over "data" as in `train_detector`, and with
@@ -456,11 +470,11 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
     params = mesh_lib.put_tree(params, pspec, mesh) if mesh is not None else params
     state = mesh_lib.replicated(state, mesh)
     opt_state = _adam_replicated(opt_state, mesh, pspec)
-    step = make_triplet_step(model, opt, compute_dtype=dtype, mining=mining,
-                             remat=remat, fakequant=fakequant, mesh=mesh)
-    if mesh is None:
-        step = program_step(ProgramCache(device, train=True),
-                            ("identifier", str(dtype), mining, remat, fakequant), step, 3)
+    step = program_step(ProgramCache(device, train=True),
+                        ("identifier", str(dtype), mining, remat, fakequant,
+                         *mesh_lib.mesh_key(mesh)),
+                        make_triplet_step(model, opt, compute_dtype=dtype, mining=mining,
+                                          remat=remat, fakequant=fakequant, mesh=mesh), 3)
     semi = mining == "semi_hard"
 
     def make_batch(i):
@@ -524,6 +538,7 @@ def train_identifier(model, params: dict, state: dict, triplet_dataset, hps: dic
 
     losses = [float(v) for v in torch.stack(losses).cpu()] if losses else []
     _write_history(history_path, losses)
+    del step  # the step's program and its pool, before the recalibration's
     params, opt_state = whole()
     pspec = {}  # whole from here on: `whole` and `save` gather nothing more
     if finalize_bn:
@@ -550,16 +565,30 @@ def finalize_bn_stats(model, params: dict, state: dict, dataset, batch_size: int
     """Re-estimate the BN moving statistics over the training set with the
     params frozen (trainer.py:233-266): a train-mode f32 forward with
     momentum 0 per batch (the true remainder, not padded) gives each
-    batch's statistics, averaged in float64 on the host, then f32."""
+    batch's statistics, averaged in float64 on the host, then f32.
+
+    Each forward replays one captured inference program (the JAX package's
+    jitted `recal`), key ("recal", the model's class, the batch shape): the
+    remainder batch has a program of its own. The params and state are
+    closed over, fixed for the call; the host sums stay outside."""
     device = next(iter(params.values())).device
     steps = dataset.steps(batch_size)
     if max_batches is not None:
         steps = min(steps, max_batches)
+    programs = ProgramCache(device)
+    names: list = []  # the statistics' keys, in the programs' output order
+
+    def recal(images):
+        _, bstats = model.apply_train(params, state, images, bn_momentum=0.0)
+        names[:] = bstats
+        return tuple(bstats.values())
+
     sums = None
     for i in range(steps):
         images = torch.from_numpy(dataset.batch(i, batch_size)[0]).to(device)
-        _, bstats = model.apply_train(params, state, images, bn_momentum=0.0)
-        host = {k: v.cpu().numpy().astype(np.float64) for k, v in bstats.items()}
+        out = programs.run(("recal", type(model).__name__, tuple(images.shape)),
+                           recal, images)
+        host = {k: v.cpu().numpy().astype(np.float64) for k, v in zip(names, out, strict=True)}
         sums = host if sums is None else {k: sums[k] + host[k] for k in sums}
     if sums is None:
         return state

@@ -413,6 +413,51 @@ def test_cli_writes_the_image_and_round_trips_h5(net, tmp_path, monkeypatch, cap
     np.testing.assert_array_equal(imread(out), first)
 
 
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_yolov3_class_keeps_one_program_per_shape_and_thresholds(net, tmp_path,
+                                                                monkeypatch, precision):
+    """YOLOV3 at f32 and bf16 serves through its ProgramCache: one key per
+    (precision, net size, image shape, thresholds), the same key for a
+    second image of that shape, another for another shape or threshold;
+    its boxes match the JAX YOLOV3's within the tolerances of
+    test_yolov3_class_detect_object_matches_jax and equal the eager
+    detect_coco's."""
+    monkeypatch.chdir(tmp_path)
+    keras_import.save_yolov3_keras_h5(net["sd"], "yolov3_model.h5")
+    kw = dict(obj_thresh=0.3, cls_thresh=0.0, nms_thresh=0.45,
+              human_entropy_thresh=100.0, bottle_entropy_thresh=100.0)
+    rng = np.random.default_rng(8)
+    images = [rng.uniform(0, 255, shape).astype(np.uint8)
+              for shape in ((100, 140, 3), (100, 140, 3), (90, 120, 3))]
+    model = yd.YOLOV3(net_size=NET, precision=precision, device="cpu")
+    jax_model = jax_yd.YOLOV3(net_size=NET, precision=precision)
+    for image in images:
+        got = model.detect_person(image, **kw)
+        eager = yd.detect_coco("", image, 0.3, 0.45, precision, net_size=NET,
+                               params_state=net["sd"], device="cpu")
+        again = yd.detect_coco("", image, 0.3, 0.45, precision, net_size=NET,
+                               device="cpu", forward=model._forward,
+                               programs=model.programs)
+        for a, b in zip(again, eager, strict=True):
+            np.testing.assert_array_equal(a, b)
+        if precision == "float32":
+            want = jax_model.detect_person(image, **kw)
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                np.testing.assert_allclose([g.xmin, g.ymin, g.xmax, g.ymax],
+                                           [w.xmin, w.ymin, w.xmax, w.ymax],
+                                           rtol=BOX_PIXEL_RTOL, atol=1.0)
+                np.testing.assert_allclose(g.classes, w.classes, atol=SCORE_ATOL)
+    model.detect_person(images[0], **dict(kw, obj_thresh=0.4))
+    assert model.programs.keys() == [
+        ("coco", precision, NET, 100, 140, 0.3, 0.45),
+        ("coco", precision, NET, 90, 120, 0.3, 0.45),
+        ("coco", precision, NET, 100, 140, 0.4, 0.45)]  # least recently used first
+    with pytest.raises(ValueError, match="program cache"):
+        yd.detect_coco("", images[0], precision="int8", device="cpu",
+                       forward=model._forward, programs=model.programs)
+
+
 def test_yolov3_class_detect_object_matches_jax(net, tmp_path, monkeypatch):
     """YOLOV3.detect_object (docker variant): the entropy-filtered boxes and
     the `[:-5]` output name equal the JAX package's; detect_person agrees."""

@@ -36,6 +36,13 @@ Tolerances, with what was measured on these seeds in brackets:
   and against JAX: loss 1e-5 abs [8.3e-7], all gradients 5e-3 of their
   norm [2.0e-3 vs JAX; 1.6e-4 DP and 9.5e-7 TP vs 1 process], each 0.1
   [0.016], BN 1e-5 [2.7e-7].
+- The mesh training loops run each step through a program keyed on the
+  mesh (`mesh.mesh_key`); on the CPU a program is its eager step, so the
+  loops equal the eager mesh steps bit for bit. In float64 (conv_0..conv_12
+  at 32², plain and fake-quant, one train_detector step over 2 ranks) the
+  loss is within 1e-12 of one process's and the BN statistics within
+  1e-12 of their max, the bounds above; the params after Keras Adam
+  within 1e-12 [measured 0].
 - One train step (train_detector over the mesh, and train_identifier at
   model_axis 2 vs JAX train_identifier on make_mesh(2, model_axis=2)):
   the loss as above; Keras Adam's first step moves each parameter by
@@ -155,21 +162,63 @@ def _digest(tree):
     return tree
 
 
+class _Keys:
+    """Records the key of every program a ProgramCache runs."""
+
+    seen: list = []
+
+    @classmethod
+    def cache(cls):
+        from face_vijnana_yolov3_tpu_torch.core.programs import ProgramCache
+
+        class Recording(ProgramCache):
+            def run(self, key, fn, *inputs, donate=0):
+                cls.seen.append(key)
+                return super().run(key, fn, *inputs, donate=donate)
+
+        return Recording
+
+    @classmethod
+    def take(cls) -> list:
+        out, cls.seen = cls.seen, []
+        return out
+
+
+def _f64_loop(mesh):
+    """One train_detector step of the f64 truncated graph, plain and
+    fake-quant: (losses, params, state) each."""
+    from face_vijnana_yolov3_tpu_torch.train import trainer
+
+    case = torch.load(os.environ["FVY_CASE"], weights_only=False)
+    params, state = case["trunc"]
+    x, t = case["trunc_xy"]
+    return {fq: trainer.train_detector(Truncated(), dict(params), dict(state), DetSet(x, t),
+                                       dict(HPS, batch_size=B), mesh=mesh, finalize_bn=False,
+                                       device_data=False, fakequant=fq,
+                                       compute_dtype=torch.float64)
+            for fq in (False, True)}
+
+
 def _worker(rank: int, world: int, port: str, workdir: str) -> None:
     """One rank: every distributed step of the module, results to workdir."""
     torch.set_num_threads(2)
+    from face_vijnana_yolov3_tpu_torch.core.programs import ProgramError
     from face_vijnana_yolov3_tpu_torch.models import darknet
     from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
     from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel
     from face_vijnana_yolov3_tpu_torch.parallel import mesh as mesh_lib
     from face_vijnana_yolov3_tpu_torch.train import trainer
+    from face_vijnana_yolov3_tpu_torch.train.optimizer import KerasAdam
 
     assert mesh_lib.init_distributed(f"localhost:{port}", world, rank, device="cpu")
-    case = torch.load(os.path.join(workdir, "case.pt"), weights_only=False)
+    os.environ["FVY_CASE"] = os.path.join(workdir, "case.pt")
+    case = torch.load(os.environ["FVY_CASE"], weights_only=False)
     out = {}
     dp = mesh_lib.make_mesh()
     tp = mesh_lib.make_mesh(model_axis=2)
     data = mesh_lib.axis_group(dp, "data")
+    trainer.ProgramCache = _Keys.cache()
+    eager_step = trainer.program_step
 
     tparams, tstate = case["trunc"]
     x, g, w = (mesh_lib.batch_sharded(t, dp) for t in _padded(case["trunc_xy"], B))
@@ -189,6 +238,28 @@ def _worker(rank: int, world: int, port: str, workdir: str) -> None:
                                         dict(HPS, batch_size=B), mesh=dp,
                                         finalize_bn=False, device_data=False)
     out["det_loop"] = (l1, p1, s1)
+    out["det_loop_keys"] = _Keys.take()
+    out["f64_loop"] = _f64_loop(dp)
+    _Keys.take()
+
+    # The same step under a key whose carry changed shape: refused before
+    # it runs (so before any collective), on every rank.
+    step = trainer.program_step(trainer.ProgramCache("cpu", train=True),
+                                ("truncated", *mesh_lib.mesh_key(dp)),
+                                trainer.make_train_step(Truncated(), KerasAdam(1e-3),
+                                                        compute_dtype=torch.float64,
+                                                        group=data), 3)
+    tparams64, tstate64 = case["trunc"]
+    xs, ts_, ws = (mesh_lib.batch_sharded(t, dp) for t in _padded(case["trunc_xy"], B))
+    feeds = (xs.double(), ts_.double(), ws)
+    step(tparams64, tstate64, KerasAdam(1e-3).init(tparams64), *feeds)
+    cut = dict(tparams64, **{"conv_0.weight": tparams64["conv_0.weight"][:16]})
+    try:
+        step(cut, tstate64, KerasAdam(1e-3).init(cut), *feeds)
+        out["shape_change"] = None
+    except ProgramError as e:
+        out["shape_change"] = str(e)
+    _Keys.take()
 
     idm = FaceIdentifierModel(image_size=S, dense1_dim=D, device="cpu")
     iparams, istate = darknet.split_state_dict(case["id"])
@@ -206,8 +277,23 @@ def _worker(rank: int, world: int, port: str, workdir: str) -> None:
                                         checkpoint_path=ckpt, finalize_bn=False,
                                         device_data=False, mining="semi_hard")
     out["id_loop_losses"] = tl
-    if rank:  # the other ranks' results as digests, and rank 1's dense1 rows
-        out = dict(_digest(out), id_tp_dense1=out["id_tp"][1]["dense1.weight"])
+    out["id_loop_keys"] = _Keys.take()
+
+    # The eager mesh steps (no program) of both loops.
+    trainer.program_step = lambda programs, key, step, n: step
+    p2, s2, l2 = trainer.train_detector(det, params, state, DetSet(*case["det_xy"]),
+                                        dict(HPS, batch_size=B), mesh=dp,
+                                        finalize_bn=False, device_data=False)
+    out["det_loop_eager"] = (l2, p2, s2)
+    ip, _, tl2 = trainer.train_identifier(idm, iparams, istate, TripletSet(*case["trip"]),
+                                          dict(HPS, batch_size=TB), mesh=tp,
+                                          finalize_bn=False, device_data=False,
+                                          mining="semi_hard")
+    out["id_loop_eager_losses"] = tl2
+    trainer.program_step = eager_step
+    if rank:  # the other ranks' results as digests, and rank 1's dense1 rows and keys
+        out = dict(_digest(out), id_tp_dense1=out["id_tp"][1]["dense1.weight"],
+                   keys=(out["det_loop_keys"], out["id_loop_keys"]))
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -252,6 +338,7 @@ def runs():
             "trunc": trunc, "trunc_xy": trunc_xy}
     tmp = tempfile.TemporaryDirectory()
     torch.save(case, os.path.join(tmp.name, "case.pt"))
+    os.environ["FVY_CASE"] = os.path.join(tmp.name, "case.pt")
     port = str(_free_port())
     env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     env.pop("XLA_FLAGS", None)
@@ -311,6 +398,7 @@ def _references(case, jdet, jid):
                                         dict(HPS, batch_size=B), finalize_bn=False,
                                         device_data=False)
     refs["det_loop"] = (ll, lp, ls)
+    refs["f64_loop"] = _f64_loop(None)
 
     idm = FaceIdentifierModel(image_size=S, dense1_dim=D, device="cpu")
     iparams, istate = darknet.split_state_dict(case["id"])
@@ -446,6 +534,46 @@ def test_dp_train_detector_loop_matches_one_process(runs):
     moved = sum(int((v.abs() > 1e-6).sum()) for v in moves.values())
     assert moved <= 0.01 * sum(v.numel() for v in moves.values()), moved
     assert _state_error(s0, os_) <= 1e-5
+
+
+def test_mesh_loops_run_their_program_keys(runs):
+    """Both mesh loops step through one program key each, which names the
+    mesh's shape and the rank's coordinates, the same sequence on every
+    rank up to the coordinates; the eager mesh steps give the same losses,
+    params and BN statistics bit for bit."""
+    r0, r1 = runs["ranks"]
+    for rank, keys in enumerate((r0["det_loop_keys"], r1["keys"][0])):
+        assert keys == [("detector", "torch.float32", False, "mesh", (2, 1), (rank, 0),
+                         (B // 2, S, S, 3), (B // 2, S // 32, S // 32, 6), (B // 2,))]
+    for rank, keys in enumerate((r0["id_loop_keys"], r1["keys"][1])):
+        assert len(keys) == 1
+        assert keys[0][:8] == ("identifier", "torch.float32", "semi_hard", False, False,
+                               "mesh", (1, 2), (0, rank))
+    assert _digest(r0["det_loop"]) == _digest(r0["det_loop_eager"]) == r1["det_loop_eager"]
+    assert r0["id_loop_losses"] == r0["id_loop_eager_losses"]
+    assert r1["id_loop_losses"] == r1["id_loop_eager_losses"]
+
+
+@pytest.mark.parametrize("fq", [False, True], ids=["plain", "fakequant"])
+def test_f64_mesh_program_loop_equals_one_process(runs, fq):
+    """train_detector through the mesh program in float64 against one
+    process: the loss and BN statistics within the float64 bounds, the
+    params within 1e-12 after Keras Adam (module docstring)."""
+    p0, s0, l0 = runs["ranks"][0]["f64_loop"][fq]
+    assert _digest((p0, s0, l0)) == runs["ranks"][1]["f64_loop"][fq]
+    p1, s1, l1 = runs["refs"]["f64_loop"][fq]
+    assert len(l0) == len(l1) == 1
+    assert l0[0] == pytest.approx(l1[0], rel=1e-12)
+    assert _state_error(s0, s1) <= 1e-12
+    assert max(float((p0[k] - v).abs().max()) for k, v in p1.items()) <= 1e-12
+
+
+def test_mesh_program_refuses_a_carry_of_another_shape(runs):
+    """A carry whose shape differs from its key's first call raises
+    ProgramError on every rank, before any collective runs."""
+    for r in runs["ranks"]:
+        msg = r["shape_change"]
+        assert isinstance(msg, str) and "takes" in msg and "'mesh', (2, 1)" in msg, msg
 
 
 @pytest.mark.parametrize("name", ["id_dp", "id_tp"])

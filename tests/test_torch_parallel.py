@@ -17,7 +17,10 @@ virtual mesh (tests/conftest.py) serves the same int8 program.
 
 Tolerances:
 - DP int8 serving vs one process: bit for bit (integer trunk, per-image
-  head and postprocess), the mixed-tail qparams included.
+  head and postprocess), the mixed-tail qparams included. Both serve
+  through programs keyed on the shape and the mesh (on the CPU a program
+  is its eager function); the head also equals the eager `apply_quant`
+  of the whole batch bit for bit.
 - DP int8 vs JAX `detect_quant_dp`: the trunk is bit-exact and the head
   conv is bf16 on both sides in other summation orders: 2e-2 of max |head|
   (tests/test_torch_int8_pipeline.py's bound) [measured 1.1e-2].
@@ -67,19 +70,22 @@ def _serve(case, mesh):
         identify_roi_dp,
     )
 
-    out = {}
+    out = {"keys": []}
     det = FaceDetectorModel(image_size=S, device="cpu")
     det.load_state_dict(case["det"])
     x = case["images"]
     for name, qp, blocks in (("full", case["q_full"], True), ("tail", case["q_tail"], False)):
-        out[f"head_{name}"] = detect_quant_dp(det, mesh, qp, fused_blocks=blocks)(x)
+        head = detect_quant_dp(det, mesh, qp, fused_blocks=blocks)
+        out[f"head_{name}"] = head(x)
         out[f"pp_{name}"] = detect_quant_dp(det, mesh, qp, postprocess_cfg=_pp_cfg(),
                                             fused_blocks=blocks)(x)
+        out["keys"] += head.programs.keys()
     idm = FaceIdentifierModel(image_size=S, dense1_dim=D, device="cpu")
     idm.load_state_dict(case["id"])
     staged, packed, reg, (wh, ww) = case["roi"]
     fn = identify_roi_dp(idm.embed, mesh, image_size=S, window_h=wh, window_w=ww)
     out["roi"] = fn(staged, packed, reg)
+    out["keys"] += fn.programs.keys()
     return out
 
 
@@ -209,6 +215,7 @@ def _references(case, jd, params, state, jq, ji, iparams, istate):
     from face_vijnana_yolov3_tpu.parallel import mesh as jax_mesh
     from face_vijnana_yolov3_tpu.parallel import spatial as jax_spatial
     from face_vijnana_yolov3_tpu.parallel.serving import detect_quant_dp, identify_roi_dp
+    from face_vijnana_yolov3_tpu_torch.models import quant
     from face_vijnana_yolov3_tpu_torch.models.detector import FaceDetectorModel
 
     refs = {"serve": _serve(case, None)}
@@ -217,6 +224,14 @@ def _references(case, jd, params, state, jq, ji, iparams, istate):
     with torch.inference_mode():
         refs["unsharded"] = det.apply_folded(det.fold(), torch.from_numpy(
             case["spatial_images"]), compute_dtype=torch.float32)
+        for name, blocks in (("full", True), ("tail", False)):
+            qp = case[f"q_{name}"]
+            tail = qp.get("tail_start")
+            qp = quant.to_device({k: v for k, v in qp.items() if k != "tail_start"}, "cpu")
+            if tail is not None:
+                qp["tail_start"] = int(tail)
+            refs[f"eager_head_{name}"] = det.apply_quant(
+                qp, torch.from_numpy(case["images"]), fused_blocks=blocks)
     refs["spatial_pp"] = _spatial(case, None)["pp"]
     mesh8 = jax_mesh.make_mesh(8)
     x = jnp.asarray(case["images"])
@@ -259,6 +274,34 @@ def test_detect_quant_dp_equals_one_process_bit_for_bit(runs, qp):
             for got, want in zip(r[f"pp_{qp}"], one[f"pp_{qp}"]):
                 assert torch.equal(got, want), label
     assert one[f"head_{qp}"].shape == (SERVE_B, S // 32, S // 32, 6)
+
+
+def test_dp_serving_runs_one_program_per_shape_and_mesh(runs):
+    """detect_quant_dp and identify_roi_dp replay one program per key: the
+    rank's input shape and `mesh.mesh_key` (the mesh's shape, the rank's
+    coordinates); one process keys on the shape alone."""
+    staged = runs["refs"]["serve"]["roi"]
+    assert staged.shape == (1, BUCKET, 2)
+    for label, results, shape in (("d2", runs["ranks"][2], (2, 1)),
+                                  ("d2m2", runs["ranks"][4], (2, 2))):
+        for rank, r in enumerate(results):
+            coords = (rank // shape[1], rank % shape[1])
+            keys = (r["serve"] if label == "d2" else r["serve_d2m2"])["keys"]
+            mesh = ("mesh", shape, coords)
+            assert keys[:2] == [("dp-detect", (SERVE_B // 2, S, S, 3), *mesh)] * 2, label
+            assert keys[2][0] == "dp-roi" and keys[2][-3:] == mesh, label
+            assert keys[2][3] == (1, BUCKET // 2, keys[2][3][2]), label
+    assert runs["refs"]["serve"]["keys"][0] == ("dp-detect", (SERVE_B, S, S, 3))
+
+
+@pytest.mark.parametrize("qp", ["full", "tail"])
+def test_dp_detect_program_equals_the_eager_int8_forward(runs, qp):
+    """The DP detect program's head equals the single-process eager int8
+    forward (`apply_quant` on the whole batch) bit for bit."""
+    want = runs["refs"][f"eager_head_{qp}"]
+    for label, results in _serving_runs(runs):
+        for r in results:
+            assert torch.equal(r[f"head_{qp}"], want), label
 
 
 @pytest.mark.parametrize("qp", ["full", "tail"])

@@ -394,6 +394,32 @@ def test_finalize_bn_stats_matches_jax(full, dataset_dir):
     assert _state_error(got, want) <= 1e-4
 
 
+def test_finalize_bn_stats_replays_one_program_per_batch_shape(full, dataset_dir,
+                                                              monkeypatch):
+    """Each batch's momentum-0 forward runs through the program of
+    ("recal", the model's class, the batch shape): 5 images in batches of
+    2 give two keys, the remainder batch unpadded under its own; the
+    statistics match the JAX package's finalize_bn_stats (1e-4)."""
+    keys = []
+
+    class Recording(trainer.ProgramCache):
+        def run(self, key, fn, *inputs, donate=0):
+            keys.append(key)
+            return super().run(key, fn, *inputs, donate=donate)
+
+    monkeypatch.setattr(trainer, "ProgramCache", Recording)
+    jm, params, state, pm = full
+    ds = uccs.DetectionDataset(dataset_dir, image_size=64, grid=2, cache="samples")
+    tp, ts = darknet.split_state_dict(pm.state_dict())
+    got = trainer.finalize_bn_stats(pm, tp, ts, ds, 2)
+    assert keys == [("recal", "FaceDetectorModel", (2, 64, 64, 3))] * 2 + [
+        ("recal", "FaceDetectorModel", (1, 64, 64, 3))]
+    assert set(got) == set(ts)
+    recal = jax.jit(lambda p, s, x: jm.apply(p, s, x, train=True, bn_momentum=0.0))
+    want = jax_trainer.finalize_bn_stats(recal, params, state, ds, 2)
+    assert _state_error(got, want) <= 1e-4
+
+
 def test_losses_match_jax():
     rng = np.random.default_rng(9)
     t = rng.uniform(0, 1, (2, 3, 3, 6)).astype(np.float32)
