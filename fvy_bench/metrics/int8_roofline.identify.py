@@ -1,0 +1,3 @@
+"""`int8_roofline.identify`: int8_roofline of harness/readers.py."""
+
+from fvy_bench.harness.readers import int8_roofline as read  # noqa: F401

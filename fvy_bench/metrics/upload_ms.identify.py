@@ -1,0 +1,3 @@
+"""`upload_ms.identify`: upload_ms of harness/readers.py."""
+
+from fvy_bench.harness.readers import upload_ms as read  # noqa: F401
