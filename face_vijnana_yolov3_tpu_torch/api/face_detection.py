@@ -106,6 +106,7 @@ from face_vijnana_yolov3_tpu_torch.ops.resize import (
     letterbox_matrices,
     to_unit_f32,
 )
+from face_vijnana_yolov3_tpu_torch.utils import profiling
 from face_vijnana_yolov3_tpu_torch.utils.io import imread, imsave
 
 DEBUG = True
@@ -141,6 +142,7 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 class FaceDetectorPipeline:
     """Detector lifecycle: build/load weights, batched detect, modes."""
 
+    @profiling.spanned("fvy.pipeline.init", pipeline="detector")
     def __init__(self, conf: FdConf, *, precision: str = "float32",
                  device: torch.device | str | None = None):
         if precision not in ("float32", "bfloat16", "int8"):
@@ -244,6 +246,7 @@ class FaceDetectorPipeline:
         return (self.precision == "int8" or self._hybrid_front) and self._qparams is None
 
     @torch.inference_mode()
+    @profiling.spanned("fvy.calibrate_int8")
     def calibrate_int8(self, images, percentile=None):
         """Calibrate int8 serving on a representative letterboxed batch
         (api/face_detection.py:153-289 of the JAX package).
@@ -261,7 +264,9 @@ class FaceDetectorPipeline:
         evidence first: the checkpoint's measured `int8_tail` pin, else full
         int8 for a QAT checkpoint, else the ladder (0, 2, 4, 5, 6, 8) scored
         by the box-F1 self-check on up to 32 images. detect_batch and
-        detect_batch_fused call this on their first batch.
+        detect_batch_fused call this on their first batch. Span:
+        `fvy.calibrate_int8` (attributes of the ladder: the tails offered,
+        those tried, the tail chosen and its error).
         """
         if percentile is None:
             percentile = getattr(self.conf, "int8_calib_percentile", 0.0) or None
@@ -316,6 +321,7 @@ class FaceDetectorPipeline:
             self._qparams = quant.to_device(q, self.device)
             self.int8_tail_chosen = tail
             self.int8_calib_err = err
+            profiling.set_attrs(ladder=tails, tail=tail, err=err)
             if tail:
                 print(f"[calibrate_int8] self-check 1-boxF1 {err:.4f} over "
                       f"threshold — serving with bf16 tail {tail}")
@@ -608,9 +614,11 @@ class FaceDetectorPipeline:
         self._ready_to_serve()
         cands, counts = self.programs.run(self._fused_key(staged_dev, uniform),
                                           self._fused_program, staged_dev, row_ms, col_ms)
-        out = (cands[:n_real].cpu().numpy(), counts[:n_real].cpu().numpy())
+        with profiling.span("fvy.detect.fetch"):
+            out = (cands[:n_real].cpu().numpy(), counts[:n_real].cpu().numpy())
         return out + (staged_dev,) if return_staged else out
 
+    @profiling.spanned("fvy.detect.inputs")
     def _fused_inputs(self, staged, geoms: list, pad_batch_to: int | None, dec_dims):
         """The fused program's inputs for a staged chunk of n >= 1 images:
         (staged on the device, padded to the bucket and to pad_batch_to,

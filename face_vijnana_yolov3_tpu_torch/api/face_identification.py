@@ -80,6 +80,7 @@ from face_vijnana_yolov3_tpu_torch.models.identifier import FaceIdentifierModel,
 from face_vijnana_yolov3_tpu_torch.ops import roi
 from face_vijnana_yolov3_tpu_torch.ops.letterbox import letterbox_host
 from face_vijnana_yolov3_tpu_torch.ops.similarity import match_embeddings
+from face_vijnana_yolov3_tpu_torch.utils import profiling
 from face_vijnana_yolov3_tpu_torch.utils.io import imsave
 
 DEBUG = True
@@ -127,6 +128,7 @@ def _row(k: int, subject_id, boxes: np.ndarray) -> dict:
 class FaceIdentifierPipeline:
     """Identifier lifecycle: weights, embed, subject DB, identify, train."""
 
+    @profiling.spanned("fvy.pipeline.init", pipeline="identifier")
     def __init__(self, conf: Conf, *, precision: str = "float32",
                  device: torch.device | str | None = None, seed: int | None = None):
         fi = conf.fi_conf
@@ -221,6 +223,7 @@ class FaceIdentifierPipeline:
     def _needs_calibration(self) -> bool:
         return (self.precision == "int8" or self._hybrid_front) and self._q_embed is None
 
+    @profiling.spanned("fvy.calibrate_int8")
     def _calibrate_int8(self, images: torch.Tensor) -> None:
         """Fold and calibrate the int8 trunk on the first 16 of `images`
         (face_identification.py:197-214); dense1 stays bf16. The int8 guard
@@ -276,6 +279,7 @@ class FaceIdentifierPipeline:
                 f32_front_blocks=int(getattr(self.conf, "bf16_f32_front", 2)))
         return self.model.embed(x)
 
+    @profiling.spanned("fvy.embed")
     def embed_device(self, images) -> torch.Tensor:
         """fid extractor: (B, S, S, 3) float images (numpy, or a tensor) →
         (B, D) embeddings on the device, in bucket pieces (`_embed_tensor`).
@@ -442,6 +446,7 @@ class FaceIdentifierPipeline:
         return [_row(k, subject_ids[int(best_idx[j])], boxes)
                 for j, k in enumerate(keep) if not best_dist[j] > self.hps["sim_th"]]
 
+    @profiling.spanned("fvy.roi.plan")
     def _roi_plan(self, images: list, boxes_list: list, staged_dev=None):
         """The device crops of a detect chunk's boxes (face_identification.py:
         480-526): (owners, plan). owners[r] = (image j, box k) of ROI r for
@@ -459,10 +464,11 @@ class FaceIdentifierPipeline:
         """
         owners: list[tuple[int, int]] = []  # ROI → (image j, box k)
         wins: list[tuple[int, int, int, int]] = []
-        for j, (im, bx) in enumerate(zip(images, boxes_list)):
-            keep_j, wins_j = roi.build_roi_windows(bx, im.shape[0], im.shape[1])
-            owners.extend((j, k) for k in keep_j)
-            wins.extend(wins_j)
+        with profiling.span("fvy.roi.windows"):
+            for j, (im, bx) in enumerate(zip(images, boxes_list)):
+                keep_j, wins_j = roi.build_roi_windows(bx, im.shape[0], im.shape[1])
+                owners.extend((j, k) for k in keep_j)
+                wins.extend(wins_j)
         if not owners:
             return owners, None
         if staged_dev is not None:
@@ -489,7 +495,8 @@ class FaceIdentifierPipeline:
         origins = np.zeros((len(owners), 3), np.int32)
         for r, ((j, _k), (y0, x0, _ch, _cw)) in enumerate(zip(owners, wins)):
             origins[r] = (j, min(y0, bh - wh), min(x0, bw - ww))
-        taps = roi.stack_roi_taps(wins, self.image_size, origins[:, 1:])
+        with profiling.span("fvy.roi.taps"):
+            taps = roi.stack_roi_taps(wins, self.image_size, origins[:, 1:])
         return owners, dict(staged=staged, origins=origins, taps=taps, window=(wh, ww))
 
     def _roi_crops(self, plan: dict, sl: slice) -> torch.Tensor:
@@ -513,6 +520,7 @@ class FaceIdentifierPipeline:
             staged, org, ri, rw, ci, cw, window_h=window_h, window_w=window_w)
         return match_embeddings(self._embed_program(crops), reg)
 
+    @profiling.spanned("fvy.roi.pack")
     def _roi_inputs(self, plan: dict, reg_dev) -> list[tuple]:
         """[(key, program, staged, packed, reg)]: the identify programs of
         a chunk's n ROIs, one per piece of `_bucket_split(n)` in ROI order,
@@ -555,8 +563,9 @@ class FaceIdentifierPipeline:
             self._calibrate_int8(self._roi_crops(plan, slice(0, min(INT8_CALIB_IMAGES, n))))
         self._ready_to_serve()
         idx, dist = zip(*(self.programs.run(*p) for p in self._roi_inputs(plan, reg_dev)))
-        best_idx = torch.cat(idx).cpu().numpy()
-        best_dist = torch.cat(dist).cpu().numpy()
+        with profiling.span("fvy.identify.fetch"):
+            best_idx = torch.cat(idx).cpu().numpy()
+            best_dist = torch.cat(dist).cpu().numpy()
         for r, (j, k) in enumerate(owners):
             if best_dist[r] > self.hps["sim_th"]:
                 continue

@@ -84,6 +84,13 @@ the buckets, the padding, the input checks and the carry's layout are the
 same, nothing is captured. On CUDA a capture or replay error raises
 `ProgramError` naming the key; nothing falls back to eager serving or
 training.
+
+A cache counts its `builds` (first calls of a key: the warm-up and the
+capture on the card, the eager call on the CPU) and its `replays` (calls a
+kept program serves: on the card also the replay that follows a capture),
+always, as the kernel wrappers count their launches; with spans on
+(utils/profiling) a build is the span `fvy.program.build` (attribute: the
+key) and a replay `fvy.program.replay` (the key's first element).
 """
 
 from __future__ import annotations
@@ -95,6 +102,7 @@ import weakref
 import torch
 
 from face_vijnana_yolov3_tpu_torch import kernels
+from face_vijnana_yolov3_tpu_torch.utils import profiling
 
 MAX_PROGRAMS = 64  # programs a cache keeps, the most recently used
 
@@ -173,6 +181,8 @@ class ProgramCache:
         self._static: dict = {}  # (position, shape, dtype) → static input
         self._pool = None
         self._stream = None
+        self.builds = 0
+        self.replays = 0
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -208,13 +218,25 @@ class ProgramCache:
         if entry is not None and entry[0] != sig:
             raise ProgramError(f"the program {key!r} takes {entry[0]}, got {sig}")
         if entry is None:
-            prog = (None if self.device.type != "cuda"
-                    else self._capture(key, fn, inputs, donate))
-            self._programs[key] = entry = (sig, prog)
-            self._evict()
-        self._programs.move_to_end(key)
-        with self._mode():
+            self.builds += 1
+            with profiling.span("fvy.program.build", key=key):
+                if self.device.type != "cuda":
+                    self._keep(key, (sig, None))
+                    with self._mode():
+                        return fn(*inputs)
+                entry = self._keep(key, (sig, self._capture(key, fn, inputs, donate)))
+        else:
+            self._programs.move_to_end(key)
+        self.replays += 1
+        with profiling.span("fvy.program.replay", key=key[0]), self._mode():
             return fn(*inputs) if entry[1] is None else entry[1](*inputs)
+
+    def _keep(self, key, entry):
+        """Keep a new program, dropping the least recently used beyond
+        MAX_PROGRAMS."""
+        self._programs[key] = entry
+        self._evict()
+        return entry
 
     def _evict(self) -> None:
         if len(self._programs) <= MAX_PROGRAMS:
@@ -259,8 +281,12 @@ class ProgramCache:
                     fn(*static_in)  # warm-up: real launches, counted as such
                 warm = {k: k.launches for k in counters}
                 try:
-                    # thread_local: the prefetch thread may upload the next
-                    # chunk (pinned memory, its own stream) meanwhile.
+                    # thread_local: the prefetch thread may enqueue the next
+                    # chunk's upload meanwhile (pinned memory, on its current
+                    # stream: the card's default stream, where the replays
+                    # run too, so on the card the copy runs between their
+                    # kernels; upload_overlap of fvy_bench/harness/program.py
+                    # reads the share it overlaps).
                     with torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                           capture_error_mode="thread_local"):
                         out = fn(*static_in)

@@ -46,6 +46,7 @@ from face_vijnana_yolov3_tpu_torch.ops.conv_int8 import (
     fma_f32,
     quantize,
 )
+from face_vijnana_yolov3_tpu_torch.utils import profiling
 
 # Candidate clip percentiles scored by "auto" calibration (plus exact maxabs)
 # and the margin a clip must win by (quant.py:41-62).
@@ -663,7 +664,8 @@ def quantize_autotail(model, folded, x_calib, *,
     `improve_factor`. `scorer(ref_head, cand_head)` (numpy) defaults to head
     NRMSE; serving passes detection_box_f1_scorer. Scales calibrate on the
     first `n_scale_calib` images, the self-check scores all of them.
-    Returns (qparams, tail_blocks, err).
+    Returns (qparams, tail_blocks, err); the tails tried are the attribute
+    `tried` of the enclosing span (utils/profiling), when spans are on.
     """
     ref = _host(model.apply_folded(folded, x_calib, compute_dtype=torch.float32))
     denom = float(np.sqrt(np.mean(ref.astype(np.float64) ** 2))) + 1e-12
@@ -686,6 +688,7 @@ def quantize_autotail(model, folded, x_calib, *,
             best = (q, tail, err)
         if best[2] <= rel_threshold:
             break
+    profiling.set_attrs(tried=tails[:tails.index(tail) + 1])
     return best
 
 

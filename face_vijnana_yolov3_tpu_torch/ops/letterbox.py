@@ -13,6 +13,8 @@ import dataclasses
 
 import numpy as np
 
+from face_vijnana_yolov3_tpu_torch.utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class LetterboxGeometry:
@@ -85,6 +87,7 @@ def letterbox_host(
     return out, geom
 
 
+@profiling.spanned("fvy.unletterbox")
 def unletterbox_boxes_chunk(cands: np.ndarray, geoms: list) -> np.ndarray:
     """Map a chunk's (B, N, >=4) candidate rows back to original coords in
     one set of f64 numpy passes; bitwise-identical to per-image
